@@ -33,8 +33,8 @@ def main():
         import jax
         jax.config.update("jax_platforms", "cpu")
 
-    from dips_tpu import DiPsProperties
-    from dips_tpu.serve import DiPsServer, ResilientDiPsClient
+    from dips import DiPsProperties
+    from dips.serve import DiPsServer, ResilientDiPsClient
 
     # Geometry-flexible (no height/width) + coalesced: each resolution
     # gets a lazily-built stacked-stream coalescer shared by its cameras.

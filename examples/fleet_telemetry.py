@@ -5,12 +5,10 @@ each stream's decode feeds the device once and only statistics come back
 (~128 B/frame).  Two flavours run side by side over the same synthetic
 fleet:
 
-* ``OutputMode.STATS_ONLY`` — the raw integer absdiff signal (fastest,
-  ~38k fps/chip @1080p);
+* ``OutputMode.STATS_ONLY`` — the raw integer absdiff signal (fastest);
 * ``emit_maps=False`` on the FULL median pipeline — the noise-robust
   signal (spatial+temporal medians suppress sensor noise before the
-  diff), still with zero map egress, at 1.33x the mapped pipeline's rate
-  (BASELINE.md "emit_maps" row).
+  diff), still with zero map egress.
 
 Each stream also gets a motion-event segmentation and a per-stream
 FLICKER map — every stream's vibration analysis runs in ONE stacked
@@ -66,8 +64,8 @@ def main():
         import jax
         jax.config.update("jax_platforms", "cpu")
 
-    from dips_tpu.app import run_dips_on_files
-    from dips_tpu.properties import DiPsProperties, OutputMode
+    from dips.app import run_dips_on_files
+    from dips.properties import DiPsProperties, OutputMode
 
     with tempfile.TemporaryDirectory() as tmp:
         paths, fps = make_fleet_clips(tmp)

@@ -46,9 +46,9 @@ def main():
         import jax
         jax.config.update("jax_platforms", "cpu")
 
-    from dips_tpu import DiPsProperties
-    from dips_tpu.properties import DiPsFilter, OutputMode
-    from dips_tpu.serve import DiPsClient, DiPsServer
+    from dips import DiPsProperties
+    from dips.properties import DiPsFilter, OutputMode
+    from dips.serve import DiPsClient, DiPsServer
 
     props = DiPsProperties(window_size=1, temporal_size=2,
                            filter=DiPsFilter.UNFILTERED,

@@ -1,12 +1,12 @@
-"""Multi-host pod demo, self-contained on one machine.
+"""Multi-host demo, self-contained on one machine.
 
 Spawns TWO worker processes that form a real ``jax.distributed`` cluster
 (4 virtual CPU devices each -> one 8-device global mesh) and run
 ``MultiHostStreamEngine`` over 8 camera streams: each "host" decodes and
 feeds only its own 4 streams, the global mean|diff| statistic rides one
-cross-host psum, and outputs come back host-locally.  On a real TPU pod
-the SAME worker code runs once per host with ``init_multihost()`` and no
-arguments.
+cross-host psum, and outputs come back host-locally.  On a real cluster
+the SAME worker code runs once per host with the coordinator address,
+process count and rank passed to ``init_multihost()``.
 
   python examples/multi_host.py
 """
@@ -25,8 +25,8 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
-from dips_tpu.parallel import init_multihost, MultiHostStreamEngine
-from dips_tpu.properties import DiPsProperties, DiPsFilter
+from dips.parallel import init_multihost, MultiHostStreamEngine
+from dips.properties import DiPsProperties, DiPsFilter
 
 rank, nprocs, port = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
 info = init_multihost(f"127.0.0.1:{port}", nprocs, rank)
@@ -36,8 +36,7 @@ print(f"[host {info.process_index}] joined: "
 
 props = DiPsProperties(window_size=3, temporal_size=2,
                        filter=DiPsFilter.UNFILTERED)
-eng = MultiHostStreamEngine(props, 64, 96, n_streams=8, batch=4,
-                            backend="xla")
+eng = MultiHostStreamEngine(props, 64, 96, n_streams=8, batch=4)
 print(f"[host {rank}] owns streams {eng.local_stream_ids}", flush=True)
 
 rng = np.random.default_rng(rank)

@@ -25,9 +25,9 @@ def main():
         import jax
         jax.config.update("jax_platforms", "cpu")
 
-    from dips_tpu.io import moving_square_clip
-    from dips_tpu.parallel import MultiStreamEngine, stream_mesh
-    from dips_tpu.properties import DiPsProperties
+    from dips.io import moving_square_clip
+    from dips.parallel import MultiStreamEngine, stream_mesh
+    from dips.properties import DiPsProperties
 
     mesh = stream_mesh()
     n_dev = mesh.devices.size
@@ -42,7 +42,7 @@ def main():
         out, stats, gmean = eng.process_batch(
             [list(c[i:i + 4]) for c in clips])
         print(f"frames {i}..{i+3}: out {out.shape}, "
-              f"global mean |diff| (psum over ICI) = {gmean:.5f}")
+              f"global mean |diff| (psum) = {gmean:.5f}")
 
 
 if __name__ == "__main__":

@@ -1,17 +1,15 @@
-"""Pod-fleet demo: raw no-map fleet on the 2-D (stream x rows) grid.
+"""Fleet demo: raw no-map fleet on the 2-D (stream x rows) grid.
 
-The round-5 deployment shape: a handful of HUGE cameras on a pod where
-stream count alone can't use every chip.  Each device owns a horizontal
-slab of a subset of streams; raw modes (absdiff / threshold /
-stats-only) have no stencil, so the slabs need no halo exchange at all —
-the only ICI traffic is the statistic reductions, and per-shard
-throughput scales with the rows axis almost ideally (BASELINE.md
-"Round-5 measurements": 4.69x at R=5 on a v5e).
+A handful of HUGE cameras where stream count alone can't use every
+device.  Each device owns a horizontal slab of a subset of streams; raw
+modes (absdiff / threshold / stats-only) have no stencil, so the slabs
+need no halo exchange at all — the only cross-device traffic is the
+statistic reductions.
 
 Two flavours over the same synthetic fleet:
 
-* ``STATS_ONLY`` with ring-carry — the no-map events fleet (~128 B of
-  D2H per frame per stream);
+* ``STATS_ONLY`` — the no-map events fleet (~128 B of D2H per frame per
+  stream);
 * ``THRESHOLD`` with ``packed_wire`` — bit-packed motion masks on the
   same 2-D grid (8x less D2H when maps ARE wanted).
 
@@ -54,12 +52,12 @@ def main():
         import jax
         jax.config.update("jax_platforms", "cpu")
 
-    from dips_tpu.parallel import MultiStreamEngine
-    from dips_tpu.parallel.grid2d import grid_mesh
-    from dips_tpu.properties import DiPsProperties, OutputMode
+    from dips.parallel import MultiStreamEngine
+    from dips.parallel.grid2d import grid_mesh
+    from dips.properties import DiPsProperties, OutputMode
 
     h, w, batch = 32, 96, 4
-    mesh = grid_mesh(2, 4)  # 2 stream shards x 4 row slabs = 8 chips
+    mesh = grid_mesh(2, 4)  # 2 stream shards x 4 row slabs = 8 devices
     print(f"mesh: 2 streams x 4 row slabs over {mesh.devices.size} devices")
     clips = [synth_clip(args.frames, h, w, seed=k) for k in range(2)]
 
@@ -67,7 +65,7 @@ def main():
     props = DiPsProperties(output=OutputMode.STATS_ONLY, temporal_size=2,
                            change_threshold=20)
     eng = MultiStreamEngine(props, h, w, n_streams=2, batch=batch,
-                            mesh=mesh, ring_carry=None)
+                            mesh=mesh)
     for i in range(0, args.frames, batch):
         out, stats, gmean = eng.process_batch(
             [c[i:i + batch] for c in clips])

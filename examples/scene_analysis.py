@@ -4,7 +4,7 @@ A synthetic "instrument bay" camera: a gauge region blinks at a known
 frequency while an irrelevant corridor region sees constant motion.
 The run (a) scopes motion statistics/events to the gauge via
 ``props.roi`` so the corridor cannot trigger alerts, and (b) streams a
-:class:`~dips_tpu.ops.analysis.FlickerAnalyzer` to localize which
+:class:`~dips.ops.analysis.FlickerAnalyzer` to localize which
 pixels oscillate at the gauge's frequency.
 
 Run: python examples/scene_analysis.py [--cpu]
@@ -45,10 +45,10 @@ def main():
         import jax
         jax.config.update("jax_platforms", "cpu")
 
-    from dips_tpu import DiPsJob, DiPsProperties, perform_dips
-    from dips_tpu.io import write_clip
-    from dips_tpu.ops.analysis import FlickerAnalyzer
-    from dips_tpu.ops.events import detect_events
+    from dips import DiPsJob, DiPsProperties, perform_dips
+    from dips.io import write_clip
+    from dips.ops.analysis import FlickerAnalyzer
+    from dips.ops.events import detect_events
 
     fps, gauge_hz = 24.0, 6.0
     frames = build_clip(fps=fps, gauge_hz=gauge_hz)

@@ -26,8 +26,8 @@ def main():
         import jax
         jax.config.update("jax_platforms", "cpu")
 
-    from dips_tpu import DiPsProperties
-    from dips_tpu.serve import DiPsClient, DiPsServer
+    from dips import DiPsProperties
+    from dips.serve import DiPsClient, DiPsServer
 
     h, w = 96, 128
     server = DiPsServer(DiPsProperties(window_size=3, temporal_size=2),
@@ -69,7 +69,7 @@ def main():
 
     # low-bandwidth mask transport: THRESHOLD + --packed-wire + packed=True
     # requests move 8x fewer bytes device->host AND server->client
-    from dips_tpu import OutputMode
+    from dips import OutputMode
     srv2 = DiPsServer(DiPsProperties(output=OutputMode.THRESHOLD,
                                      temporal_size=2),
                       h, w, port=0, batch=8, packed_wire=True)

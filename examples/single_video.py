@@ -1,6 +1,6 @@
 """Minimal end-to-end demo: synthesize a clip, run DiPs, write outputs.
 
-Run: python examples/single_video.py [--backend pallas]
+Run: python examples/single_video.py [--cpu]
 Produces demo_in.avi, demo_out.avi, demo_heatmap.png and prints stats.
 """
 
@@ -13,14 +13,13 @@ import argparse
 
 import numpy as np
 
-from dips_tpu import (DiPsEngine, DiPsJob, DiPsMethod, DiPsProperties,
-                      OutputMode, perform_dips)
-from dips_tpu.io import moving_square_clip, write_clip
+from dips import (DiPsEngine, DiPsJob, DiPsMethod, DiPsProperties,
+                  OutputMode, perform_dips)
+from dips.io import moving_square_clip, write_clip
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--backend", default="xla", choices=["xla", "pallas"])
     ap.add_argument("--cpu", action="store_true",
                     help="force the CPU backend (like the other examples)")
     args = ap.parse_args()
@@ -34,15 +33,14 @@ def main():
     props = DiPsProperties(method=DiPsMethod.OVERALL, window_size=3,
                            temporal_size=4, refresh_markers=(24,))
     job = DiPsJob(properties=props, video_path="demo_in.avi",
-                  output_path="demo_out.avi", backend=args.backend,
-                  profile=True)
+                  output_path="demo_out.avi", profile=True)
     stats = perform_dips(job)
     print(f"{stats.shape[0]} frames; mean |diff| per frame:",
           np.round(stats[:, 1], 4).tolist()[:8], "...")
     print(job.timers)
 
     # heatmap via the engine API
-    eng = DiPsEngine(props, 240, 320, batch=16, backend=args.backend)
+    eng = DiPsEngine(props, 240, 320, batch=16)
     eng.process_frames(list(frames))
     hm = eng.heatmap()
     import cv2

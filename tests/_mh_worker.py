@@ -4,11 +4,10 @@ tests/test_multihost.py; results land in an npz the parent compares
 against a single-process 8-device run.
 
 Usage: python tests/_mh_worker.py RANK NPROCS PORT OUTDIR
-       [--checkpoint] [--ring] [--raw]
+       [--checkpoint] [--raw]
 
-``--ring`` runs the PRODUCTION step protocol — the fused pallas
-ring-carry kernel (interpret mode on this CPU cluster) — through the
-multi-host global-array plumbing, instead of the portable XLA tail step.
+``--raw`` runs the ABSDIFF events-fleet shape (u8 carried global state)
+instead of the median pipeline.
 """
 
 import os
@@ -44,17 +43,15 @@ def main() -> int:
     rank, nprocs, port = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
     outdir = sys.argv[4]
     do_checkpoint = "--checkpoint" in sys.argv
-    ring = "--ring" in sys.argv
     raw = "--raw" in sys.argv
-    backend = "pallas" if ring else "xla"
 
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     import jax
     jax.config.update("jax_platforms", "cpu")
 
     import numpy as np
-    from dips_tpu.parallel import init_multihost, MultiHostStreamEngine
-    from dips_tpu.properties import DiPsProperties, DiPsFilter
+    from dips.parallel import init_multihost, MultiHostStreamEngine
+    from dips.properties import DiPsProperties, DiPsFilter
 
     info = init_multihost(f"127.0.0.1:{port}", nprocs, rank)
     assert info.process_index == rank
@@ -65,14 +62,12 @@ def main() -> int:
 
     if raw:
         # the pod events fleet: raw integer diff, u8 carried global state
-        from dips_tpu.properties import OutputMode
+        from dips.properties import OutputMode
         props = DiPsProperties(output=OutputMode.ABSDIFF, temporal_size=2)
     else:
         props = DiPsProperties(window_size=3, temporal_size=2,
                                filter=DiPsFilter.UNFILTERED)
-    eng = MultiHostStreamEngine(props, H, W, S_GLOBAL, batch=BATCH,
-                                backend=backend, ring_carry=ring)
-    assert eng.ring_carry is ring
+    eng = MultiHostStreamEngine(props, H, W, S_GLOBAL, batch=BATCH)
     n_mine = FRAMES_PER_RANK[rank]
     clips = {si: make_clip(n=n_mine, h=H, w=W, seed=100 + si)
              for si in eng.local_stream_ids}
@@ -93,8 +88,7 @@ def main() -> int:
             # each host restores its own shard, then continues bit-exactly
             path = os.path.join(outdir, f"ckpt_{rank}.npz")
             eng.save(path)
-            eng = MultiHostStreamEngine(props, H, W, S_GLOBAL, batch=BATCH,
-                                        backend=backend, ring_carry=ring)
+            eng = MultiHostStreamEngine(props, H, W, S_GLOBAL, batch=BATCH)
             eng.load(path)
 
     np.savez(os.path.join(outdir, f"rank{rank}.npz"),

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from dips_tpu.models import DiPsEngine
-from dips_tpu.ops import analysis
-from dips_tpu.ops.oracle import DiPsOracle
-from dips_tpu.properties import DiPsFilter, DiPsMethod, DiPsProperties, OutputMode
+from dips.models import DiPsEngine
+from dips.ops import analysis
+from dips.ops.oracle import DiPsOracle
+from dips.properties import DiPsFilter, DiPsMethod, DiPsProperties, OutputMode
 from tests.conftest import make_clip
 
 
@@ -63,13 +63,12 @@ def test_engine_heatmap_matches_oracle(output, clip):
     assert eng.heatmap().max() > 0  # the moving square left a trail
 
 
-def test_pallas_heatmap_matches_oracle(clip):
+def test_median_heatmap_matches_oracle(clip):
     props = DiPsProperties(window_size=3, temporal_size=2,
                            filter=DiPsFilter.UNFILTERED)
     o = DiPsOracle(props)
     o.run(clip)
-    eng = DiPsEngine(props, clip.shape[1], clip.shape[2], batch=5,
-                     backend="pallas")
+    eng = DiPsEngine(props, clip.shape[1], clip.shape[2], batch=5)
     eng.process_frames(list(clip))
     np.testing.assert_allclose(eng.heatmap(), o.heatmap, atol=1e-5)
 
@@ -84,8 +83,8 @@ def test_denoise_frames_batched(rng):
 
 def test_cli_denoise_and_dft(tmp_path, capsys):
     import json
-    from dips_tpu.cli import main as cli_main
-    from dips_tpu.io import moving_square_clip, write_clip
+    from dips.cli import main as cli_main
+    from dips.io import moving_square_clip, write_clip
     path = str(tmp_path / "in.avi")
     write_clip(moving_square_clip(n=8, height=32, width=48), path)
     dft = str(tmp_path / "dft.json")
@@ -156,7 +155,7 @@ def test_flicker_matches_numpy_oracle(rng):
 
 
 def test_flicker_chroma_channels(rng):
-    from dips_tpu.properties import ChromaFilter
+    from dips.properties import ChromaFilter
     frames = rng.integers(0, 256, (20, 6, 8, 3), np.uint8)
     for cf, key in ((ChromaFilter.RED, "r"), (ChromaFilter.GREEN, "g"),
                     (ChromaFilter.BLUE, "b")):
@@ -247,8 +246,8 @@ def test_flicker_reset_and_validation(rng):
 
 
 def test_cli_flicker(tmp_path, capsys):
-    from dips_tpu.cli import main as cli_main
-    from dips_tpu.io import write_clip
+    from dips.cli import main as cli_main
+    from dips.io import write_clip
     fps = 24.0
     frames = _blink_clip(96, 16, 20, fps, freq_a=6.0, freq_b=2.0)
     path = str(tmp_path / "blink.avi")
@@ -270,14 +269,14 @@ def test_cli_flicker(tmp_path, capsys):
 
 
 def test_cli_flicker_flag_gating(tmp_path, capsys):
-    from dips_tpu.cli import main as cli_main
+    from dips.cli import main as cli_main
     rc = cli_main(["--input", "a.avi", "--output", "b.avi",
                    "--flicker-png", str(tmp_path / "x.png")])
     assert rc == 2 and "--flicker-hz" in capsys.readouterr().err
     rc = cli_main(["--live", "--flicker-hz", "5"])
     assert rc == 2 and "--flicker-hz" in capsys.readouterr().err
     # frequency above the clip's Nyquist rate is a user error, not a crash
-    from dips_tpu.io import moving_square_clip, write_clip
+    from dips.io import moving_square_clip, write_clip
     path = str(tmp_path / "in.avi")
     write_clip(moving_square_clip(n=6, height=16, width=20), path, fps=10.0)
     rc = cli_main(["--input", path, "--output", str(tmp_path / "o.avi"),

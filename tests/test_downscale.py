@@ -4,10 +4,10 @@ engine equivalence vs pre-pooled frames, and the streaming/CLI surface."""
 import numpy as np
 import pytest
 
-from dips_tpu.models import DiPsEngine
-from dips_tpu.ops import reference
-from dips_tpu.properties import (DiPsFilter, DiPsMethod, DiPsProperties,
-                                 OutputMode)
+from dips.models import DiPsEngine
+from dips.ops import reference
+from dips.properties import (DiPsFilter, DiPsMethod, DiPsProperties,
+                             OutputMode)
 
 
 @pytest.mark.parametrize("k", [2, 3, 4])
@@ -38,20 +38,21 @@ def test_pool_host_exact_means():
     assert list(out[0, 0]) == [25, 0, 0]
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
-def test_downscale_engine_equals_pre_pooled(backend):
+@pytest.mark.parametrize("method", [DiPsMethod.OVERALL,
+                                    DiPsMethod.PER_FRAME])
+def test_downscale_engine_equals_pre_pooled(method):
     """A downscale-k engine fed full-res frames must match a plain engine
     fed host-pooled frames bit-for-bit (the decimation is the only
     difference, and its two implementations are twins)."""
     k = 2
     r = np.random.default_rng(0)
     clip = r.integers(0, 256, (6, 32, 48, 3), np.uint8)
-    props = DiPsProperties(window_size=3, temporal_size=2,
+    props = DiPsProperties(window_size=3, temporal_size=2, method=method,
                            filter=DiPsFilter.UNFILTERED)
-    eng_k = DiPsEngine(props, 32, 48, batch=3, backend=backend, downscale=k)
+    eng_k = DiPsEngine(props, 32, 48, batch=3, downscale=k)
     assert (eng_k.height, eng_k.width) == (16, 24)
     assert (eng_k.in_height, eng_k.in_width) == (32, 48)
-    eng_1 = DiPsEngine(props, 16, 24, batch=3, backend=backend)
+    eng_1 = DiPsEngine(props, 16, 24, batch=3)
     pooled = [reference.pool_frame_host(f, k) for f in clip]
     out_k, stats_k = eng_k.process_frames(list(clip))
     out_1, stats_1 = eng_1.process_frames(pooled)
@@ -66,11 +67,11 @@ def test_downscale_checkpoint_roundtrip(tmp_path):
     r = np.random.default_rng(1)
     clip = r.integers(0, 256, (8, 16, 32, 3), np.uint8)
     props = DiPsProperties(window_size=3, temporal_size=2)
-    a = DiPsEngine(props, 16, 32, batch=4, backend="xla", downscale=k)
+    a = DiPsEngine(props, 16, 32, batch=4, downscale=k)
     a.process_frames(list(clip[:4]))
     p = str(tmp_path / "ck.npz")
     a.save(p)
-    b = DiPsEngine(props, 16, 32, batch=4, backend="xla", downscale=k)
+    b = DiPsEngine(props, 16, 32, batch=4, downscale=k)
     b.load(p)
     oa, sa = a.process_frames(list(clip[4:]))
     ob, sb = b.process_frames(list(clip[4:]))
@@ -95,7 +96,7 @@ def test_downscale_roi_and_heatmap_at_analysis_geometry():
     clip = r.integers(0, 256, (4, 32, 64, 3), np.uint8)
     props = DiPsProperties(output=OutputMode.ABSDIFF, temporal_size=2,
                            roi=(2, 4, 14, 28))  # fits 16x32, not centered
-    eng = DiPsEngine(props, 32, 64, batch=4, backend="xla", downscale=2)
+    eng = DiPsEngine(props, 32, 64, batch=4, downscale=2)
     outs, stats = eng.process_frames(list(clip))
     assert outs.shape == (4, 16, 32, 3)
     assert eng.heatmap().shape == (16, 32)
@@ -106,7 +107,7 @@ def test_stream_dips_downscale(tmp_path):
     """The streaming loop decodes full-res and yields decimated maps; the
     written video is at the analysis geometry."""
     import cv2
-    from dips_tpu.app import DiPsJob, perform_dips
+    from dips.app import DiPsJob, perform_dips
     path = str(tmp_path / "in.avi")
     wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 30,
                          (64, 32))
@@ -120,7 +121,7 @@ def test_stream_dips_downscale(tmp_path):
     out = str(tmp_path / "out.avi")
     job = DiPsJob(properties=DiPsProperties(temporal_size=2),
                   video_path=path, output_path=out, batch=4,
-                  backend="xla", downscale=2)
+                  downscale=2)
     stats = perform_dips(job)
     assert stats.shape[0] == 10
     cap = cv2.VideoCapture(out)
@@ -136,7 +137,7 @@ def test_stream_dips_downscale(tmp_path):
 
 def test_cli_downscale(tmp_path):
     import cv2
-    from dips_tpu.cli import main
+    from dips.cli import main
     path = str(tmp_path / "in.avi")
     wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 30,
                          (64, 32))
@@ -158,18 +159,18 @@ def test_cli_downscale(tmp_path):
 def test_multistream_downscale_matches_single():
     """MultiStreamEngine(downscale=k) must equal per-stream DiPsEngine
     downscale runs (the serving coalescer's decimation path)."""
-    from dips_tpu.parallel import MultiStreamEngine, stream_mesh
+    from dips.parallel import MultiStreamEngine, stream_mesh
     k = 2
     r = np.random.default_rng(3)
     clips = [r.integers(0, 256, (5, 16, 32, 3), np.uint8) for _ in range(2)]
     props = DiPsProperties(window_size=3, temporal_size=2,
                            filter=DiPsFilter.UNFILTERED)
     ms = MultiStreamEngine(props, 16, 32, n_streams=2, batch=5,
-                           mesh=stream_mesh(1), backend="xla", downscale=k)
+                           mesh=stream_mesh(1), downscale=k)
     assert (ms.height, ms.width) == (8, 16)
     out, stats, _ = ms.process_batch([list(c) for c in clips])
     for si, clip in enumerate(clips):
-        eng = DiPsEngine(props, 16, 32, batch=5, backend="xla", downscale=k)
+        eng = DiPsEngine(props, 16, 32, batch=5, downscale=k)
         eo, es = eng.process_frames(list(clip))
         np.testing.assert_array_equal(out[si], eo)
         np.testing.assert_allclose(stats[si], es, atol=1e-6)
@@ -179,7 +180,7 @@ def test_cli_inputs_downscale(tmp_path):
     """--inputs batch mode composes with --downscale (decimated outputs
     per stream)."""
     import cv2
-    from dips_tpu.cli import main
+    from dips.cli import main
     paths = []
     rng = np.random.default_rng(4)
     for s in range(2):

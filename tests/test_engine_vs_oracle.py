@@ -8,10 +8,10 @@ ulps); stats agree to float tolerance.
 import numpy as np
 import pytest
 
-from dips_tpu.models import DiPsEngine
-from dips_tpu.ops.oracle import DiPsOracle
-from dips_tpu.properties import (ChromaFilter, DiPsFilter, DiPsMethod,
-                                 DiPsProperties, OutputMode)
+from dips.models import DiPsEngine
+from dips.ops.oracle import DiPsOracle
+from dips.properties import (ChromaFilter, DiPsFilter, DiPsMethod,
+                             DiPsProperties, OutputMode)
 from tests.conftest import make_clip
 
 
@@ -177,14 +177,14 @@ def test_engine_reset(clip):
 
 
 def test_backend_auto_resolution():
-    """backend='auto' resolves to the portable XLA path off-TPU (and to the
-    fused Pallas kernels on TPU — exercised by validate.py on-device)."""
-    import jax
-    from dips_tpu.ops import reference
-    eng = DiPsEngine(DiPsProperties(), 8, 16)  # default backend="auto"
-    assert eng.backend == ("pallas" if jax.default_backend() == "tpu"
-                           else "xla")
-    assert eng._step in (reference.batch_step,)
+    """Every backend runs the one XLA step: median modes compile
+    ``reference.batch_step``, raw modes ``reference.absdiff_step``."""
+    from dips.ops import reference
+    assert DiPsEngine(DiPsProperties(), 8, 16)._step is reference.batch_step
+    raw = DiPsProperties(output=OutputMode.ABSDIFF)
+    assert DiPsEngine(raw, 8, 16)._step is reference.absdiff_step
+    with pytest.raises(TypeError):
+        DiPsEngine(DiPsProperties(), 8, 16, backend="xla")
 
 
 def test_process_frames_empty():
@@ -206,19 +206,19 @@ def test_checkpoint_mode_mismatch_rejected(tmp_path):
         med_eng.load(p)
 
 
-@pytest.mark.parametrize("backend,ring",
-                         [("pallas", True), ("pallas", False),
-                          ("xla", False)])
-def test_hwc_input_layout_bit_exact(backend, ring):
+@pytest.mark.parametrize("method,window",
+                         [(DiPsMethod.OVERALL, 3), (DiPsMethod.PER_FRAME, 3),
+                          (DiPsMethod.OVERALL, 1)])
+def test_hwc_input_layout_bit_exact(method, window):
     """input_layout='hwc' (device-side transpose+pad) matches the host
-    planarize path bit-for-bit on every protocol, including partial
-    batches, refresh markers and a forced snapshot."""
-    props = DiPsProperties(window_size=3, temporal_size=2,
-                           filter=DiPsFilter.UNFILTERED,
+    planarize path bit-for-bit in every mode, including partial batches,
+    refresh markers and a forced snapshot."""
+    props = DiPsProperties(window_size=window, temporal_size=2,
+                           method=method, filter=DiPsFilter.UNFILTERED,
                            refresh_markers=(5,))
     h, w = 20, 44
     clip = make_clip(n=9, h=h, w=w, seed=31)
-    kw = dict(batch=4, backend=backend, ring_carry=ring)
+    kw = dict(batch=4)
     ep = DiPsEngine(props, h, w, input_layout="planar", **kw)
     eh = DiPsEngine(props, h, w, input_layout="hwc", **kw)
     for lo, hi in ((0, 4), (4, 7), (7, 9)):  # full + two partial batches

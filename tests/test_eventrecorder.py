@@ -6,9 +6,9 @@ import os
 import numpy as np
 import pytest
 
-from dips_tpu.io.eventrecorder import EventRecorder
-from dips_tpu.ops.events import MotionDetector
-from dips_tpu.ops.oracle import NUM_STATS
+from dips.io.eventrecorder import EventRecorder
+from dips.ops.events import MotionDetector
+from dips.ops.oracle import NUM_STATS
 
 from tests.conftest import make_clip
 
@@ -96,7 +96,7 @@ def test_idle_run_records_nothing():
 
 def test_cli_record_events_writes_segments(tmp_path):
     import cv2
-    from dips_tpu.cli import main as cli_main
+    from dips.cli import main as cli_main
 
     h, w = 16, 24
     frames = (list(make_clip(n=6, h=h, w=w, seed=3, moving=False))
@@ -127,7 +127,7 @@ def test_cli_record_events_writes_segments(tmp_path):
 
 
 def test_cli_record_events_rejected_outside_file_mode(tmp_path, capsys):
-    from dips_tpu.cli import main as cli_main
+    from dips.cli import main as cli_main
     rc = cli_main(["--inputs", "a.avi", "b.avi",
                    "--output-dir", str(tmp_path),
                    "--record-events", str(tmp_path / "r")])
@@ -139,8 +139,8 @@ def test_mid_run_error_still_closes_open_segment(tmp_path):
     """Review regression: a decode error (or Ctrl-C) while a segment is
     open must close its writer — an unfinalized clip is unplayable."""
     import dataclasses
-    from dips_tpu.app import DiPsJob, perform_dips, stream_dips
-    import dips_tpu.app as app_mod
+    from dips.app import DiPsJob, perform_dips, stream_dips
+    import dips.app as app_mod
 
     import cv2
     h, w = 16, 24
@@ -152,7 +152,7 @@ def test_mid_run_error_still_closes_open_segment(tmp_path):
         vw.write(f[..., ::-1])
     vw.release()
 
-    from dips_tpu.properties import DiPsFilter, DiPsProperties, OutputMode
+    from dips.properties import DiPsFilter, DiPsProperties, OutputMode
     props = DiPsProperties(window_size=1, temporal_size=1,
                            filter=DiPsFilter.UNFILTERED,
                            output=OutputMode.ABSDIFF)
@@ -186,7 +186,7 @@ def test_bad_record_config_errors_cleanly_and_leaks_nothing(tmp_path,
     """Review regression: a bad detector combination raised AFTER the
     reader/writer opened (leak) and surfaced as a raw traceback."""
     import cv2
-    from dips_tpu.cli import main as cli_main
+    from dips.cli import main as cli_main
     h, w = 16, 24
     path = str(tmp_path / "in.avi")
     vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 10, (w, h))
@@ -206,9 +206,9 @@ def test_edge_recording_from_serve_annotations(tmp_path):
     by the reply annotations (event_open / last_events) — no second
     analysis pass over the pixels."""
     import threading
-    from dips_tpu import DiPsProperties
-    from dips_tpu.properties import DiPsFilter, OutputMode
-    from dips_tpu.serve import DiPsClient, DiPsServer
+    from dips import DiPsProperties
+    from dips.properties import DiPsFilter, OutputMode
+    from dips.serve import DiPsClient, DiPsServer
 
     h, w = 16, 24
     props = DiPsProperties(window_size=1, temporal_size=1,
@@ -337,7 +337,7 @@ def test_fuzz_recorder_invariants():
     disjoint and ordered, every DETECTED event span must lie inside some
     clip (pre/post-roll included), each clip's frame count must match
     its span, and frames written == sum of clip lengths."""
-    from dips_tpu.ops.events import detect_events
+    from dips.ops.events import detect_events
 
     def _stats(series):
         a = np.zeros((len(series), NUM_STATS), np.float32)

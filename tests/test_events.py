@@ -6,8 +6,8 @@ import json
 import numpy as np
 import pytest
 
-from dips_tpu.ops.events import MotionDetector, detect_events
-from dips_tpu.ops.oracle import NUM_STATS
+from dips.ops.events import MotionDetector, detect_events
+from dips.ops.oracle import NUM_STATS
 
 from tests.conftest import make_clip
 
@@ -111,7 +111,7 @@ def test_detect_events_one_shot_any_batching():
 def test_real_pipeline_stats_segment_motion(tmp_path):
     """End to end: a clip that is static, then moving, then static again
     produces one event covering the moving span."""
-    from dips_tpu import DiPsEngine, DiPsProperties, OutputMode
+    from dips import DiPsEngine, DiPsProperties, OutputMode
 
     h, w = 16, 24
     static = make_clip(n=4, h=h, w=w, seed=3, moving=False)
@@ -138,7 +138,7 @@ def test_real_pipeline_stats_segment_motion(tmp_path):
 
 def test_cli_events_json(tmp_path):
     import cv2
-    from dips_tpu.cli import main as cli_main
+    from dips.cli import main as cli_main
 
     h, w = 16, 24
     frames = (list(make_clip(n=4, h=h, w=w, seed=3, moving=False))
@@ -239,9 +239,9 @@ def test_serve_events_config_validated_at_construction():
     """Review regression: a bad --events threshold combination must
     refuse to START the daemon, not error every process request after
     the engine state already advanced."""
-    from dips_tpu.serve import DiPsServer
-    from dips_tpu.properties import DiPsFilter as _F
-    from dips_tpu import DiPsProperties as _P
+    from dips.serve import DiPsServer
+    from dips.properties import DiPsFilter as _F
+    from dips import DiPsProperties as _P
     props = _P(window_size=1, temporal_size=2, filter=_F.UNFILTERED)
     with pytest.raises(ValueError, match="hysteresis"):
         DiPsServer(props, 16, 24, port=0,
@@ -252,7 +252,7 @@ def test_cli_events_json_dat_dir(tmp_path):
     """Review regression: --events-json in the --dat-dir path referenced
     an undefined job variable (NameError after all processing)."""
     import numpy as np
-    from dips_tpu.cli import main as cli_main
+    from dips.cli import main as cli_main
 
     h, w = 8, 12
     rng = np.random.default_rng(0)
@@ -273,7 +273,7 @@ def test_cli_events_json_multi_input(tmp_path):
     """--inputs mode: per-stream segmentation, JSON keyed by input path —
     a moving clip gets events, its static sibling gets none."""
     import cv2
-    from dips_tpu.cli import main as cli_main
+    from dips.cli import main as cli_main
 
     h, w = 16, 24
     moving = (list(make_clip(n=4, h=h, w=w, seed=3, moving=False))
@@ -363,7 +363,7 @@ def test_cli_events_json_duplicate_inputs_keep_both_streams(tmp_path):
     """Review regression: duplicate --inputs paths collapsed to one JSON
     key, silently dropping a stream's events."""
     import cv2
-    from dips_tpu.cli import main as cli_main
+    from dips.cli import main as cli_main
 
     h, w = 16, 24
     clip = (list(make_clip(n=4, h=h, w=w, seed=3, moving=False))
@@ -390,8 +390,8 @@ def test_cli_multi_input_stats_json(tmp_path):
     """--inputs mode honors --stats-json: per-stream stat rows keyed by
     input path (it used to be silently ignored in this mode)."""
     import cv2
-    from dips_tpu.cli import main as cli_main
-    from dips_tpu.ops.oracle import STAT_NAMES
+    from dips.cli import main as cli_main
+    from dips.ops.oracle import STAT_NAMES
 
     h, w = 16, 24
     paths = []

@@ -1,4 +1,4 @@
-"""Fleet flicker analysis (VERDICT r3 item 6): per-stream vibration maps on
+"""Fleet flicker analysis: per-stream vibration maps on
 the fleet surfaces — MultiStreamEngine-shaped feeds, --inputs batch mode and
 coalesced serve slots — via ONE stacked scan dispatch per round
 (ops/analysis.FleetFlickerAnalyzer), bit-matching per-stream
@@ -10,7 +10,7 @@ import threading
 import numpy as np
 import pytest
 
-from dips_tpu.ops.analysis import FleetFlickerAnalyzer, FlickerAnalyzer
+from dips.ops.analysis import FleetFlickerAnalyzer, FlickerAnalyzer
 
 
 def _flicker_clip(n, h=16, w=24, freq=5.0, fps=30.0, amp=40, seed=0,
@@ -124,8 +124,8 @@ def _write_clip(path, frames, fps):
 
 
 def test_run_dips_on_files_flicker(tmp_path):
-    from dips_tpu.app import run_dips_on_files
-    from dips_tpu.properties import DiPsProperties, OutputMode
+    from dips.app import run_dips_on_files
+    from dips.properties import DiPsProperties, OutputMode
     fps = 20.0
     paths = []
     for k in (0, 1):
@@ -147,9 +147,9 @@ def test_run_dips_on_files_flicker(tmp_path):
 def test_run_dips_on_files_flicker_zero_frames(tmp_path, monkeypatch):
     """A flicker-armed batch run whose inputs decode ZERO frames returns
     zero amplitude maps at the input geometry instead of raising."""
-    from dips_tpu import app
-    from dips_tpu.io import gstreamer
-    from dips_tpu.properties import DiPsProperties, OutputMode
+    from dips import app
+    from dips.io import gstreamer
+    from dips.properties import DiPsProperties, OutputMode
 
     class _Empty:
         height, width, fps = 16, 24, 20.0
@@ -174,7 +174,7 @@ def test_run_dips_on_files_flicker_zero_frames(tmp_path, monkeypatch):
 
 
 def test_cli_inputs_flicker(tmp_path, capsys):
-    from dips_tpu.cli import main as cli_main
+    from dips.cli import main as cli_main
     fps = 20.0
     paths = []
     for k in (0, 1):
@@ -198,8 +198,8 @@ def test_serve_coalesced_flicker():
     """Two coalesced sessions with flicker_hz: per-slot maps come from the
     coalescer's FLEET analyzer and match a single-stream analyzer fed the
     same frames."""
-    from dips_tpu.serve import DiPsClient, DiPsServer
-    from dips_tpu.properties import DiPsProperties, OutputMode
+    from dips.serve import DiPsClient, DiPsServer
+    from dips.properties import DiPsProperties, OutputMode
     fps, freq = 30.0, 5.0
     props = DiPsProperties(output=OutputMode.STATS_ONLY)
     srv = DiPsServer(props, 16, 24, port=0, batch=4, coalesce=2)

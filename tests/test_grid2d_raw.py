@@ -1,14 +1,12 @@
-"""Raw (absdiff/threshold/stats-only) modes on the 2-D stream x rows mesh
-(VERDICT r4 item 1 — the last missing cell of the parallel matrix).
+"""Raw (absdiff/threshold/stats-only) modes on the 2-D stream x rows mesh.
 
-Raw modes have no stencil, so the 2-D grid needs no halo and no bands:
-each device diffs its slab of its streams independently (stacked raw
-kernel with ``row_bounds`` when an roi is set) and only the statistic
-reductions ride ICI.  This is the headline fleet deployment — many huge
-no-map cameras on a pod where stream count alone can't use all chips.
+Raw modes have no stencil, so the 2-D grid needs no halo: each device
+diffs its slab of its streams independently and only the statistic
+reductions cross devices.  This is the no-map fleet deployment — many
+huge cameras where stream count alone can't use all devices.
 
-Integer modes are an exact-equality contract vs the full-height kernels
-(absdiff parity per /root/reference/dips/src/gpu/shaders/
+Integer modes are an exact-equality contract vs the full-height step
+(absdiff parity per the reference's dips/src/gpu/shaders/
 dips_shader.wgsl:213-236).
 """
 
@@ -17,13 +15,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from dips_tpu.models import DiPsEngine
-from dips_tpu.ops import pallas_fused
-from dips_tpu.ops.reference import pad_geometry
-from dips_tpu.parallel.grid2d import (grid_mesh, make_grid_ring_step,
-                                      make_grid_step)
-from dips_tpu.parallel.multistream import MultiStreamEngine, stream_mesh
-from dips_tpu.properties import DiPsMethod, DiPsProperties, OutputMode
+from dips.models import DiPsEngine
+from dips.ops import reference
+from dips.ops.reference import pad_geometry
+from dips.parallel.grid2d import grid_mesh, make_grid_step
+from dips.parallel.multistream import MultiStreamEngine, stream_mesh
+from dips.properties import DiPsMethod, DiPsProperties, OutputMode
 from tests.conftest import make_clip
 
 pytestmark = pytest.mark.skipif(
@@ -42,27 +39,27 @@ def _raw_inputs(props, h, w, s, b, seed=3):
             jnp.asarray(np.ones((s, b), bool)), hp, wp)
 
 
-@pytest.mark.parametrize("backend", ["pallas", "xla"])
+@pytest.mark.parametrize("grid", [(2, 4), (1, 8)])
 @pytest.mark.parametrize("mode,method", [
     (OutputMode.ABSDIFF, DiPsMethod.OVERALL),
     (OutputMode.ABSDIFF, DiPsMethod.PER_FRAME),
     (OutputMode.THRESHOLD, DiPsMethod.OVERALL),
     (OutputMode.STATS_ONLY, DiPsMethod.OVERALL),
 ])
-def test_grid_raw_tail_bit_identical(backend, mode, method):
-    """make_grid_step raw modes on a (2 x 4) mesh == per-stream
-    full-height kernels: maps byte-exact, stats to float tolerance."""
+def test_grid_raw_tail_bit_identical(grid, mode, method):
+    """make_grid_step raw modes on a (streams x rows) mesh == per-stream
+    full-height steps: maps byte-exact, stats to float tolerance."""
     props = DiPsProperties(output=mode, method=method, temporal_size=2,
                            change_threshold=20)
     h, w, s, b = 32, 40, 2, 4
     raw, flags, valid, hp, wp = _raw_inputs(props, h, w, s, b)
-    step = make_grid_step(props, h, w, grid_mesh(2, 4), backend=backend)
+    step = make_grid_step(props, h, w, grid_mesh(*grid))
     out, stats, nb, nh, gmean = step(
         raw, jnp.zeros((s, 3, hp, wp), jnp.uint8), flags,
         jnp.zeros((s, hp, wp), jnp.float32), valid)
     assert np.isfinite(float(gmean))
     for si in range(s):
-        eo, es, eb, eh = pallas_fused.absdiff_step(
+        eo, es, eb, eh = reference.absdiff_step(
             props, h, w, raw[si], jnp.zeros((3, hp, wp), jnp.uint8),
             flags[si], jnp.zeros((hp, wp), jnp.float32), valid[si])
         np.testing.assert_array_equal(np.asarray(out[si]), np.asarray(eo))
@@ -75,66 +72,63 @@ def test_grid_raw_tail_bit_identical(backend, mode, method):
 
 @pytest.mark.parametrize("method", [DiPsMethod.OVERALL,
                                     DiPsMethod.PER_FRAME])
-def test_grid_raw_ring_bit_identical(method):
-    """Ring protocol on the 2-D grid: carried prev/baseline slab state
-    across two batches == absdiff_step_ring per stream, byte-exact."""
+def test_grid_raw_two_batches_bit_identical(method):
+    """Carried baseline/heatmap slab state on the 2-D grid across two
+    batches (the last T raw frames lead the next batch) == absdiff_step
+    per stream, byte-exact."""
     props = DiPsProperties(output=OutputMode.ABSDIFF, method=method,
                            temporal_size=2)
     h, w, s, b = 32, 40, 2, 4
+    t = props.temporal_size
     hp, wp = pad_geometry(h, w)
     r = np.random.default_rng(11)
-    step = make_grid_ring_step(props, h, w, grid_mesh(2, 4))
-    prev = jnp.zeros((s, 3, hp, wp), jnp.uint8)
+    step = make_grid_step(props, h, w, grid_mesh(2, 4))
     bl = jnp.zeros((s, 3, hp, wp), jnp.uint8)
     hm = jnp.zeros((s, hp, wp), jnp.float32)
-    seeds = jnp.ones((s,), jnp.int32)
     valid = jnp.asarray(np.ones((s, b), bool))
     exp = [(jnp.zeros((3, hp, wp), jnp.uint8),
-            jnp.zeros((3, hp, wp), jnp.uint8),
             jnp.zeros((hp, wp), jnp.float32)) for _ in range(s)]
+    frames = np.zeros((s, 2 * b, 3, hp, wp), np.uint8)
+    frames[..., :h, :w] = r.integers(0, 256, (s, 2 * b, 3, h, w), np.uint8)
+    tail = np.repeat(frames[:, :1], t, axis=1)
     for bi in range(2):
-        raw = np.zeros((s, b, 3, hp, wp), np.uint8)
-        raw[..., :h, :w] = r.integers(0, 256, (s, b, 3, h, w), np.uint8)
-        raw = jnp.asarray(raw)
+        new = frames[:, bi * b:(bi + 1) * b]
+        raw = jnp.asarray(np.concatenate([tail, new], axis=1))
+        tail = new[:, -t:]
         fl = np.zeros((s, b), bool)
         fl[:, 0] = bi == 0
         fl = jnp.asarray(fl)
-        out, stats, prev, bl, hm, gmean = step(raw, prev, bl, fl, hm,
-                                               valid, seeds)
+        out, stats, bl, hm, gmean = step(raw, bl, fl, hm, valid)
         assert np.isfinite(float(gmean))
         for si in range(s):
-            ep, eb, eh = exp[si]
-            eo, es, ep, eb, eh = pallas_fused.absdiff_step_ring(
-                props, h, w, raw[si], ep, eb, fl[si], eh, valid[si],
-                seeds[si])
-            exp[si] = (ep, eb, eh)
+            eb, eh = exp[si]
+            eo, es, eb, eh = reference.absdiff_step(
+                props, h, w, raw[si], eb, fl[si], eh, valid[si])
+            exp[si] = (eb, eh)
             np.testing.assert_array_equal(np.asarray(out[si]),
                                           np.asarray(eo))
             np.testing.assert_allclose(np.asarray(stats[si]),
                                        np.asarray(es), atol=1e-6)
-            np.testing.assert_array_equal(np.asarray(prev[si]),
-                                          np.asarray(ep))
             np.testing.assert_array_equal(np.asarray(bl[si]),
                                           np.asarray(eb))
             np.testing.assert_allclose(np.asarray(hm[si]), np.asarray(eh),
                                        atol=1e-5)
-        seeds = jnp.zeros((s,), jnp.int32)
 
 
-@pytest.mark.parametrize("backend", ["pallas", "xla"])
-def test_grid_raw_roi(backend):
-    """roi row bounds fold into the slab-local mask windows on BOTH 2-D
-    raw bodies (the roi spans a strict subset of the 4 row slabs)."""
+@pytest.mark.parametrize("grid", [(2, 4), (1, 8)])
+def test_grid_raw_roi(grid):
+    """roi row bounds fold into the slab-local mask windows (the roi
+    spans a strict subset of the row slabs)."""
     props = DiPsProperties(output=OutputMode.ABSDIFF, temporal_size=2,
                            roi=(6, 4, 26, 36))
     h, w, s, b = 32, 40, 2, 4
     raw, flags, valid, hp, wp = _raw_inputs(props, h, w, s, b, seed=5)
-    step = make_grid_step(props, h, w, grid_mesh(2, 4), backend=backend)
+    step = make_grid_step(props, h, w, grid_mesh(*grid))
     out, stats, _, nh, _ = step(
         raw, jnp.zeros((s, 3, hp, wp), jnp.uint8), flags,
         jnp.zeros((s, hp, wp), jnp.float32), valid)
     for si in range(s):
-        eo, es, _, eh = pallas_fused.absdiff_step(
+        eo, es, _, eh = reference.absdiff_step(
             props, h, w, raw[si], jnp.zeros((3, hp, wp), jnp.uint8),
             flags[si], jnp.zeros((hp, wp), jnp.float32), valid[si])
         np.testing.assert_array_equal(np.asarray(out[si]), np.asarray(eo))
@@ -146,19 +140,17 @@ def test_grid_raw_roi(backend):
 
 @pytest.mark.parametrize("mode", [OutputMode.ABSDIFF, OutputMode.THRESHOLD,
                                   OutputMode.STATS_ONLY])
-@pytest.mark.parametrize("ring", [True, False])
-def test_engine_2d_raw_matches_single_device(mode, ring):
+@pytest.mark.parametrize("grid", [(2, 4), (2, 2)])
+def test_engine_2d_raw_matches_single_device(mode, grid):
     """MultiStreamEngine raw modes on the 2-D mesh reproduce per-stream
     single-device engines through the full engine surface (two batches:
-    ring-carry state crosses a step boundary)."""
+    carried state crosses a step boundary)."""
     props = DiPsProperties(output=mode, temporal_size=2,
                            change_threshold=20, refresh_markers=(5,))
     h, w, batch = 32, 40, 4
     clips = [make_clip(n=8, h=h, w=w, seed=40 + k) for k in range(2)]
     eng = MultiStreamEngine(props, h, w, n_streams=2, batch=batch,
-                            mesh=grid_mesh(2, 4), backend="pallas",
-                            ring_carry=ring)
-    assert eng.ring_carry is ring
+                            mesh=grid_mesh(*grid))
     outs, stats = [], []
     for i in range(0, 8, batch):
         o, st, g = eng.process_batch([list(c[i:i + batch]) for c in clips])
@@ -168,7 +160,7 @@ def test_engine_2d_raw_matches_single_device(mode, ring):
     out = np.concatenate(outs, axis=1)
     stat = np.concatenate(stats, axis=1)
     for k, c in enumerate(clips):
-        ref = DiPsEngine(props, h, w, batch=batch, backend="pallas")
+        ref = DiPsEngine(props, h, w, batch=batch)
         exp_out, exp_stats = ref.process_frames(list(c))
         np.testing.assert_array_equal(out[k], exp_out)
         np.testing.assert_allclose(stat[k], exp_stats, atol=1e-5)
@@ -185,8 +177,7 @@ def test_engine_2d_raw_matches_1d_mesh():
     res = {}
     for name, mesh in (("2d", grid_mesh(2, 4)), ("1d", stream_mesh(2))):
         eng = MultiStreamEngine(props, h, w, n_streams=2, batch=batch,
-                                mesh=mesh, backend="pallas",
-                                ring_carry=True)
+                                mesh=mesh)
         o, st, g = eng.process_batch([list(c) for c in clips])
         res[name] = (o, st, g)
     np.testing.assert_array_equal(res["2d"][0], res["1d"][0])
@@ -204,8 +195,7 @@ def test_engine_2d_raw_packed_wire():
     outs = {}
     for packed in (True, False):
         eng = MultiStreamEngine(props, h, w, n_streams=2, batch=batch,
-                                mesh=grid_mesh(2, 4), backend="pallas",
-                                ring_carry=True, packed_wire=packed)
+                                mesh=grid_mesh(2, 4), packed_wire=packed)
         o, st, _ = eng.process_batch([list(c) for c in clips])
         outs[packed] = (o, st)
     np.testing.assert_array_equal(outs[True][0], outs[False][0])
@@ -217,8 +207,7 @@ def test_engine_2d_stats_only_shape():
     props = DiPsProperties(output=OutputMode.STATS_ONLY, temporal_size=2)
     h, w = 32, 40
     eng = MultiStreamEngine(props, h, w, n_streams=2, batch=2,
-                            mesh=grid_mesh(2, 4), backend="pallas",
-                            ring_carry=True)
+                            mesh=grid_mesh(2, 4))
     clips = [make_clip(n=2, h=h, w=w, seed=k) for k in range(2)]
     o, st, _ = eng.process_batch([list(c) for c in clips])
     assert o.shape == (2, 2, h, w, 0)
@@ -226,14 +215,14 @@ def test_engine_2d_stats_only_shape():
 
 
 def test_grid_raw_alignment_guard():
-    with pytest.raises(ValueError, match="8-row-aligned"):
-        make_grid_step(
-            DiPsProperties(output=OutputMode.ABSDIFF, temporal_size=2),
-            24, 40, grid_mesh(2, 4), backend="pallas")
-    with pytest.raises(ValueError, match="8-row-aligned"):
-        make_grid_ring_step(
-            DiPsProperties(output=OutputMode.ABSDIFF, temporal_size=2),
-            24, 40, grid_mesh(2, 4))
+    """A rows axis that does not divide the padded height fails eagerly,
+    from the step builder and from the engine."""
+    props = DiPsProperties(output=OutputMode.ABSDIFF, temporal_size=2)
+    with pytest.raises(ValueError, match="must divide the padded height"):
+        make_grid_step(props, 24, 40, grid_mesh(1, 5))
+    with pytest.raises(ValueError, match="must divide the padded height"):
+        MultiStreamEngine(props, 24, 40, n_streams=1, batch=2,
+                          mesh=grid_mesh(1, 5))
 
 
 def test_engine_2d_raw_hwc_layout():
@@ -246,8 +235,7 @@ def test_engine_2d_raw_hwc_layout():
     res = {}
     for layout in ("planar", "hwc"):
         eng = MultiStreamEngine(props, h, w, n_streams=2, batch=batch,
-                                mesh=grid_mesh(2, 4), backend="pallas",
-                                ring_carry=True, input_layout=layout)
+                                mesh=grid_mesh(2, 4), input_layout=layout)
         o, st, _ = eng.process_batch([list(c) for c in clips])
         res[layout] = (o, st)
     np.testing.assert_array_equal(res["hwc"][0], res["planar"][0])
@@ -258,16 +246,14 @@ def test_engine_2d_raw_downscale():
     """On-device downscale composes with raw modes on the 2-D mesh: a
     downscale=2 grid engine fed full-res frames matches a plain grid
     engine fed host-pooled frames bit-exactly."""
-    from dips_tpu.ops import reference
+    from dips.ops import reference
     props = DiPsProperties(output=OutputMode.ABSDIFF, temporal_size=2)
     h, w, k, batch = 64, 80, 2, 4
     clips = [make_clip(n=4, h=h, w=w, seed=95 + i) for i in range(2)]
     ek = MultiStreamEngine(props, h, w, n_streams=2, batch=batch,
-                           mesh=grid_mesh(2, 4), backend="pallas",
-                           ring_carry=True, downscale=k)
+                           mesh=grid_mesh(2, 4), downscale=k)
     e1 = MultiStreamEngine(props, h // k, w // k, n_streams=2, batch=batch,
-                           mesh=grid_mesh(2, 4), backend="pallas",
-                           ring_carry=True)
+                           mesh=grid_mesh(2, 4))
     ok_, sk, _ = ek.process_batch([list(c) for c in clips])
     o1, s1, _ = e1.process_batch(
         [[reference.pool_frame_host(f, k) for f in c] for c in clips])
@@ -283,40 +269,37 @@ def test_engine_2d_raw_failure_isolation():
     h, w, batch = 32, 40, 4
     clips = [make_clip(n=4, h=h, w=w, seed=97 + k) for k in range(2)]
     eng = MultiStreamEngine(props, h, w, n_streams=2, batch=batch,
-                            mesh=grid_mesh(2, 4), backend="pallas",
-                            ring_carry=True)
+                            mesh=grid_mesh(2, 4))
     bad = [np.zeros((3, 3, 3), np.uint8)]  # wrong geometry -> StreamError
     out, stats, _ = eng.process_batch([bad, list(clips[1])])
     assert 0 in eng.failed and 1 not in eng.failed
-    ref = DiPsEngine(props, h, w, batch=batch, backend="pallas")
+    ref = DiPsEngine(props, h, w, batch=batch)
     exp_out, exp_stats = ref.process_frames(list(clips[1]))
     np.testing.assert_array_equal(out[1], exp_out)
     np.testing.assert_allclose(stats[1], exp_stats, atol=1e-5)
     # the failed camera rejoins fresh and produces correct results
     eng.reset_stream(0)
     out2, stats2, _ = eng.process_batch([list(clips[0]), []])
-    ref0 = DiPsEngine(props, h, w, batch=batch, backend="pallas")
+    ref0 = DiPsEngine(props, h, w, batch=batch)
     exp0, exps0 = ref0.process_frames(list(clips[0]))
     np.testing.assert_array_equal(out2[0], exp0)
     np.testing.assert_allclose(stats2[0], exps0, atol=1e-5)
 
 
 def test_engine_2d_raw_checkpoint_roundtrip(tmp_path):
-    """Raw grid engines rebuild carried u8 prev/baseline slab state from
-    checkpoint tails (mirrors the median grid checkpoint test)."""
+    """Raw grid engines resume bit-identically from a checkpoint (u8
+    baseline, raw tails; mirrors the median grid checkpoint test)."""
     props = DiPsProperties(output=OutputMode.ABSDIFF, temporal_size=2,
                            method=DiPsMethod.PER_FRAME)
     h, w = 32, 40
     clips = [make_clip(n=8, h=h, w=w, seed=110 + k) for k in range(2)]
     eng = MultiStreamEngine(props, h, w, n_streams=2, batch=4,
-                            mesh=grid_mesh(2, 4), backend="pallas",
-                            ring_carry=True)
+                            mesh=grid_mesh(2, 4))
     eng.process_batch([list(c[:4]) for c in clips])
     p = str(tmp_path / "grid_raw.npz")
     eng.save(p)
     eng2 = MultiStreamEngine(props, h, w, n_streams=2, batch=4,
-                             mesh=grid_mesh(2, 4), backend="pallas",
-                             ring_carry=True)
+                             mesh=grid_mesh(2, 4))
     eng2.load(p)
     o1, s1, _ = eng.process_batch([list(c[4:]) for c in clips])
     o2, s2, _ = eng2.process_batch([list(c[4:]) for c in clips])

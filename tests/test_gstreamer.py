@@ -1,5 +1,5 @@
-"""GStreamer backend tests through a fake-Gst shim (the real stack is absent
-on TPU hosts): reader caps/fps/preroll probing, PTS exposure, the appsrc
+"""GStreamer backend tests through a fake-Gst shim (the real stack is
+often not installed): reader caps/fps/preroll probing, PTS exposure, the appsrc
 egress writer with timestamp propagation, backend factories, and the full
 app-layer plumbing of DiPsJob.video_backend."""
 
@@ -8,10 +8,10 @@ import types
 import numpy as np
 import pytest
 
-from dips_tpu.errors import DecodeError
-from dips_tpu.io import gstreamer
-from dips_tpu.io.gstreamer import (GstVideoReader, GstVideoWriter, open_video,
-                                   open_writer)
+from dips.errors import DecodeError
+from dips.io import gstreamer
+from dips.io.gstreamer import (GstVideoReader, GstVideoWriter, open_video,
+                               open_writer)
 
 
 # ---------------------------------------------------------------------------
@@ -306,8 +306,8 @@ def test_open_video_auto_prefers_gstreamer_when_available(fake_gst, tmp_path):
 
 
 def test_open_writer_backends(fake_gst, tmp_path):
-    from dips_tpu.io.video import VideoWriter
-    from dips_tpu.properties import Encoding
+    from dips.io.video import VideoWriter
+    from dips.properties import Encoding
     fake_gst()
     w = open_writer(str(tmp_path / "a.avi"), 10, 8, 4, Encoding.MJPG,
                     "gstreamer")
@@ -321,8 +321,8 @@ def test_open_writer_backends(fake_gst, tmp_path):
 def test_perform_dips_through_gstreamer_backend(fake_gst, tmp_path):
     """End-to-end: DiPsJob.video_backend='gstreamer' plumbs the fake reader
     AND writer through stream_dips/perform_dips."""
-    from dips_tpu.app import DiPsJob, perform_dips
-    from dips_tpu.properties import DiPsFilter, DiPsProperties
+    from dips.app import DiPsJob, perform_dips
+    from dips.properties import DiPsFilter, DiPsProperties
 
     h, w = 8, 16
     frames = _rgb_frames(5, h, w, seed=3)
@@ -351,8 +351,8 @@ def test_perform_dips_gstreamer_hwc_layout(fake_gst, tmp_path):
     'hwc_bgr' — app.py picks by reader.native_rgb).  Output must match the
     host-planarized path bit-for-bit; luminance weights R=0.299 vs B=0.114
     mean a spurious swap would change every diff map."""
-    from dips_tpu.app import DiPsJob, perform_dips
-    from dips_tpu.properties import DiPsProperties
+    from dips.app import DiPsJob, perform_dips
+    from dips.properties import DiPsProperties
 
     h, w = 8, 16
     frames = _rgb_frames(5, h, w, seed=7)
@@ -454,7 +454,7 @@ def test_local_path_still_uses_filesrc(fake_gst, tmp_path):
 
 
 def test_is_stream_uri():
-    from dips_tpu.io.gstreamer import is_stream_uri
+    from dips.io.gstreamer import is_stream_uri
 
     for u in ("rtsp://h/s", "rtsps://h/s", "srt://h:1", "udp://0:5000",
               "rtp://h", "rtmp://h/live", "http://h/a.m3u8",
@@ -468,8 +468,8 @@ def test_opencv_reader_accepts_uri_without_exists_check():
     """URIs bypass the local-file existence gate on the OpenCV backend too
     (cv2+FFmpeg handles network streams); a bogus URI surfaces as a decode
     failure, not a 'file not found'."""
-    from dips_tpu.errors import DecodeError
-    from dips_tpu.io.video import VideoReader
+    from dips.errors import DecodeError
+    from dips.io.video import VideoReader
 
     with pytest.raises(DecodeError):
         VideoReader("file:///nonexistent/dir/clip.avi")
@@ -479,8 +479,8 @@ def test_run_dips_on_files_honors_video_backend(fake_gst, tmp_path):
     """The multi-video batch path routes readers AND writers through the
     selected backend (it used to hardcode OpenCV, ignoring
     --video-backend)."""
-    from dips_tpu.app import run_dips_on_files
-    from dips_tpu.properties import DiPsProperties
+    from dips.app import run_dips_on_files
+    from dips.properties import DiPsProperties
 
     h, w = 8, 16
     frames = _rgb_frames(4, h, w, seed=11)
@@ -518,7 +518,7 @@ def test_nonlive_uri_keeps_every_frame(fake_gst, tmp_path):
 
 
 def test_uri_schemes_case_insensitive():
-    from dips_tpu.io.gstreamer import is_live_uri, is_stream_uri
+    from dips.io.gstreamer import is_live_uri, is_stream_uri
 
     assert is_stream_uri("RTSP://cam/s") and is_live_uri("RTSP://cam/s")
     assert is_stream_uri("File:///x.avi") and not is_live_uri("File:///x.avi")
@@ -564,7 +564,7 @@ def test_missing_pts_resets_last_pts(fake_gst, tmp_path):
 def test_writer_surfaces_encode_errors(fake_gst, tmp_path):
     """Push FlowReturn and close-time bus ERROR must raise EncodeError
     (the OpenCV writer raises for the same conditions)."""
-    from dips_tpu.errors import EncodeError
+    from dips.errors import EncodeError
 
     fake_gst(src_flow="FLUSHING")
     w = GstVideoWriter(str(tmp_path / "o.avi"), 10, 8, 4)
@@ -581,7 +581,7 @@ def test_writer_surfaces_encode_errors(fake_gst, tmp_path):
 def test_native_layout_rejects_oversized_frames():
     """Mid-stream geometry growth must fail loudly, not write out of
     bounds through the native kernels or silently truncate ring slots."""
-    from dips_tpu import native
+    from dips import native
 
     with pytest.raises(ValueError, match="exceeds padded"):
         native.planarize(np.zeros((16, 200, 3), np.uint8), 16, 128)
@@ -596,7 +596,7 @@ def test_native_layout_rejects_oversized_frames():
 def test_thumbnail_through_gstreamer_and_uri(fake_gst, tmp_path):
     """extract_thumbnail goes through the backend-selecting reader: the
     GStreamer backend (and thus media URIs) can be thumbnailed."""
-    from dips_tpu.io.thumbnail import extract_thumbnail
+    from dips.io.thumbnail import extract_thumbnail
 
     frames = _rgb_frames(1, 40, 60, seed=3)
     fake_gst(frames, 60, 40)

@@ -1,4 +1,4 @@
-"""REAL GStreamer execution (VERDICT r2 item 7 / "Missing #1").
+"""REAL GStreamer execution.
 
 The fake-shim suite (test_gstreamer.py) pins the backend's logic; this one
 runs the same reader/writer classes against the ACTUAL C stack through the
@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 
 try:
-    from dips_tpu.io.gstbind import load_gst
+    from dips.io.gstbind import load_gst
     GST = load_gst()
 except Exception:  # noqa: BLE001 - any load failure = no C stack
     GST = None
@@ -27,7 +27,7 @@ pytestmark = pytest.mark.skipif(
 def real_gst():
     """Pin the module gate to the real ctypes backend for each test (other
     suites install fakes; ordering must not matter)."""
-    from dips_tpu.io import gstreamer as g
+    from dips.io import gstreamer as g
     old = (g._gst, g._gst_err)
     g._gst, g._gst_err = GST, None
     yield
@@ -55,7 +55,7 @@ def test_registry_probe():
 def test_writer_reader_round_trip(tmp_path):
     """appsrc encode -> file -> filesrc!decodebin decode, exact PTS,
     lossy-codec-tolerant pixel match."""
-    from dips_tpu.io.gstreamer import GstVideoReader, GstVideoWriter
+    from dips.io.gstreamer import GstVideoReader, GstVideoWriter
     path = str(tmp_path / "rt.ogv")
     frames = _frames(10)
     w = GstVideoWriter(path, fps=10.0, width=64, height=48)
@@ -85,8 +85,8 @@ def test_writer_reader_round_trip(tmp_path):
 
 
 def test_reader_missing_and_corrupt_files(tmp_path):
-    from dips_tpu.errors import DecodeError, VideoPathError
-    from dips_tpu.io.gstreamer import GstVideoReader
+    from dips.errors import DecodeError, VideoPathError
+    from dips.io.gstreamer import GstVideoReader
     with pytest.raises(VideoPathError):
         GstVideoReader(str(tmp_path / "nope.ogv"))
     junk = tmp_path / "junk.ogv"
@@ -99,8 +99,8 @@ def test_auto_stays_opencv_without_optin(tmp_path, monkeypatch):
     """The ctypes backend is explicit-only: auto keeps OpenCV unless
     DIPS_GST_CTYPES=1 (base-plugin images cannot demux .avi)."""
     import cv2
-    from dips_tpu.io.gstreamer import available, open_video
-    from dips_tpu.io.video import VideoReader
+    from dips.io.gstreamer import available, open_video
+    from dips.io.video import VideoReader
     monkeypatch.delenv("DIPS_GST_CTYPES", raising=False)
     assert not available()
     p = str(tmp_path / "a.avi")
@@ -118,9 +118,9 @@ def test_auto_stays_opencv_without_optin(tmp_path, monkeypatch):
 def test_perform_dips_on_real_gstreamer_backend(tmp_path):
     """End to end: real-Gst ingest -> diff pipeline -> real-Gst egress,
     and the produced diff video decodes back."""
-    from dips_tpu.app import DiPsJob, perform_dips
-    from dips_tpu.io.gstreamer import GstVideoReader, GstVideoWriter
-    from dips_tpu.properties import DiPsProperties
+    from dips.app import DiPsJob, perform_dips
+    from dips.io.gstreamer import GstVideoReader, GstVideoWriter
+    from dips.properties import DiPsProperties
 
     src = str(tmp_path / "in.ogv")
     w = GstVideoWriter(src, fps=10.0, width=64, height=48)
@@ -131,7 +131,7 @@ def test_perform_dips_on_real_gstreamer_backend(tmp_path):
     out = str(tmp_path / "out.ogv")
     job = DiPsJob(properties=DiPsProperties(temporal_size=2),
                   video_path=src, output_path=out, batch=4,
-                  backend="xla", video_backend="gstreamer")
+                  video_backend="gstreamer")
     stats = perform_dips(job)
     assert stats.shape[0] == 8
     rd = GstVideoReader(out)

@@ -3,9 +3,9 @@ entry/src/main.rs:75-96 — including the inverted sensitivity slider)."""
 
 import pytest
 
-from dips_tpu.gui import SENSITIVITY_MAX, props_from_controls
-from dips_tpu.properties import (ChromaFilter, DiPsFilter, DiPsMethod,
-                                 OutputMode)
+from dips.gui import SENSITIVITY_MAX, props_from_controls
+from dips.properties import (ChromaFilter, DiPsFilter, DiPsMethod,
+                             OutputMode)
 
 
 def test_props_from_controls_defaults():

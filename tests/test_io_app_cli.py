@@ -7,14 +7,14 @@ import cv2
 import numpy as np
 import pytest
 
-from dips_tpu import (DiPsJob, DiPsProperties, Encoding, VideoPathError,
-                      perform_dips, run_dips_on_file)
-from dips_tpu.app import custom_dips_on_files, stream_dips
-from dips_tpu.cli import main as cli_main
-from dips_tpu.io import (VideoReader, VideoWriter, extract_thumbnail,
-                         moving_square_clip, subsample_video, write_clip)
-from dips_tpu.io.datfiles import HEADER_BYTES, list_dat_files, read_dat_frame
-from dips_tpu.properties import DiPsFilter
+from dips import (DiPsJob, DiPsProperties, Encoding, VideoPathError,
+                  perform_dips, run_dips_on_file)
+from dips.app import custom_dips_on_files, stream_dips
+from dips.cli import main as cli_main
+from dips.io import (VideoReader, VideoWriter, extract_thumbnail,
+                     moving_square_clip, subsample_video, write_clip)
+from dips.io.datfiles import HEADER_BYTES, list_dat_files, read_dat_frame
+from dips.properties import DiPsFilter
 
 
 @pytest.fixture(scope="module")
@@ -193,8 +193,8 @@ def test_cli_thumbnail_and_errors(video, tmp_path, capsys):
 def test_gstreamer_backend_gated(video):
     """GStreamer is absent in this image: the backend must report so and
     fail with a typed error, while open_video falls back to OpenCV."""
-    from dips_tpu.io import gstreamer
-    from dips_tpu.errors import DecodeError
+    from dips.io import gstreamer
+    from dips.errors import DecodeError
     path, _ = video
     if gstreamer.available():  # pragma: no cover - not in this image
         with gstreamer.GstVideoReader(path) as r:
@@ -211,7 +211,7 @@ def test_gstreamer_backend_gated(video):
 
 def test_cli_live_headless_is_clean(capsys):
     """--live without camera/display fails with rc 1 and a message, not a
-    traceback (TPU hosts are headless)."""
+    traceback (GPU servers are headless)."""
     rc = cli_main(["--live"])
     assert rc == 1
     err = capsys.readouterr().err
@@ -220,12 +220,12 @@ def test_cli_live_headless_is_clean(capsys):
 
 def test_reference_name_aliases():
     """API-surface parity: reference builder/entry names resolve."""
-    import dips_tpu
-    from dips_tpu.properties import OutputMode
-    dips_tpu.init_frame_extractor()       # no-op parity hooks
-    dips_tpu.init_thumbnail_extractor()
-    assert callable(dips_tpu.run_dips_app)
-    assert callable(dips_tpu.run_dips_on_files)
+    import dips
+    from dips.properties import OutputMode
+    dips.init_frame_extractor()       # no-op parity hooks
+    dips.init_thumbnail_extractor()
+    assert callable(dips.run_dips_app)
+    assert callable(dips.run_dips_on_files)
     p = (DiPsProperties()
          .with_spatial_window_size(5)
          .with_filter_type("unfiltered")
@@ -283,7 +283,7 @@ def test_dat_preview_headless_skips(tmp_path, caplog):
         np.concatenate([np.zeros(4, np.uint8), rgba.ravel()]).tofile(
             tmp_path / f"Dat_{i}.d")
     out = str(tmp_path / "out.avi")
-    with caplog.at_level(logging.WARNING, logger="dips_tpu"):
+    with caplog.at_level(logging.WARNING, logger="dips"):
         stats = custom_dips_on_files(
             str(tmp_path), out, width=w, height=h,
             properties=DiPsProperties(temporal_size=1), show=True)
@@ -316,7 +316,7 @@ def test_streaming_soak_with_all_features(tmp_path):
     """Mini-soak: several hundred frames through the full streaming stack
     (pipelining, chunked decode, refresh markers) — counts, marker zeros
     and monotone indices all hold."""
-    from dips_tpu.io import moving_square_clip, write_clip
+    from dips.io import moving_square_clip, write_clip
     p = str(tmp_path / "soak.avi")
     write_clip(moving_square_clip(n=300, height=32, width=48, seed=0), p,
                fps=30)
@@ -371,7 +371,7 @@ def test_stream_dips_hwc_layout_matches_planar(video):
 
 def test_cli_input_layout_flag(video, tmp_path):
     path, frames = video
-    from dips_tpu.cli import main as cli_main
+    from dips.cli import main as cli_main
     out = str(tmp_path / "o.avi")
     rc = cli_main(["--input", path, "--output", out, "--temporal=2",
                    "--filter=none", "--input-layout", "hwc"])
@@ -388,8 +388,8 @@ def test_run_dips_on_files_disambiguates_duplicate_basenames(tmp_path):
     """camA/clip.avi + camB/clip.avi must not overwrite one output."""
     import os
 
-    from dips_tpu.app import run_dips_on_files
-    from dips_tpu.io import moving_square_clip, write_clip
+    from dips.app import run_dips_on_files
+    from dips.io import moving_square_clip, write_clip
 
     paths = []
     for d in ("camA", "camB"):
@@ -409,11 +409,11 @@ def test_run_dips_on_files_disambiguates_duplicate_basenames(tmp_path):
 
 def test_run_dips_on_files_closes_readers_on_setup_error(tmp_path, monkeypatch):
     """A bad second input must close the already-opened first reader."""
-    from dips_tpu import app as app_mod
-    from dips_tpu.app import run_dips_on_files
-    from dips_tpu.errors import VideoPathError
-    from dips_tpu.io import moving_square_clip, write_clip
-    from dips_tpu.io import gstreamer as gst_mod
+    from dips import app as app_mod
+    from dips.app import run_dips_on_files
+    from dips.errors import VideoPathError
+    from dips.io import moving_square_clip, write_clip
+    from dips.io import gstreamer as gst_mod
 
     good = str(tmp_path / "good.avi")
     write_clip(moving_square_clip(n=2, height=16, width=24), good, fps=20)
@@ -465,8 +465,8 @@ def test_decode_stall_timeout_configurable():
     """decode_stall_s bounds the ring wait; None waits out sparse live
     sources instead of aborting (and job.reader supplies a pre-opened
     reader, which stream_dips owns and closes)."""
-    from dips_tpu.app import DiPsJob, stream_dips
-    from dips_tpu.errors import DecodeError
+    from dips.app import DiPsJob, stream_dips
+    from dips.errors import DecodeError
 
     props = DiPsProperties(window_size=1, temporal_size=1)
     # impatient: a 0.2s stall cap trips on the 1.5s pause
@@ -489,7 +489,7 @@ def test_decode_stall_timeout_configurable():
 
 
 def test_cli_subsample_zero_rejected(tmp_path, capsys):
-    from dips_tpu.cli import main as cli_main
+    from dips.cli import main as cli_main
 
     rc = cli_main(["--input", "a.avi", "--output", "b.avi",
                    "--subsample", "0"])
@@ -498,7 +498,7 @@ def test_cli_subsample_zero_rejected(tmp_path, capsys):
 
 
 def test_cli_inputs_bad_encoding_friendly(tmp_path, capsys):
-    from dips_tpu.cli import main as cli_main
+    from dips.cli import main as cli_main
 
     rc = cli_main(["--inputs", "a.avi", "b.avi",
                    "--output-dir", str(tmp_path), "--encoding", "vp9"])
@@ -509,8 +509,8 @@ def test_cli_inputs_bad_encoding_friendly(tmp_path, capsys):
 def test_cli_inputs_oversized_mesh_friendly(tmp_path, capsys):
     """A mesh wanting more devices than the host has must print an error,
     not a traceback."""
-    from dips_tpu.cli import main as cli_main
-    from dips_tpu.io import moving_square_clip, write_clip
+    from dips.cli import main as cli_main
+    from dips.io import moving_square_clip, write_clip
 
     p = str(tmp_path / "a.avi")
     write_clip(moving_square_clip(n=2, height=16, width=24), p, fps=20)
@@ -521,14 +521,13 @@ def test_cli_inputs_oversized_mesh_friendly(tmp_path, capsys):
 
 
 def test_error_types_raise_where_documented(tmp_path, video):
-    """Coverage audit: the three exception types nothing asserted —
+    """Coverage audit: the exception types nothing asserted —
     OutputPathError (perform_dips without an output), FrameCallbackError
-    (a raising callback, chained from the cause), DeviceError (an
-    unknown engine backend)."""
-    from dips_tpu import (DiPsEngine, DiPsJob, DiPsProperties,
-                          FrameCallbackError, OutputPathError,
-                          perform_dips)
-    from dips_tpu.errors import DeviceError
+    (a raising callback, chained from the cause) — and the TypeError of
+    the removed engine ``backend`` option."""
+    from dips import (DiPsEngine, DiPsJob, DiPsProperties,
+                      FrameCallbackError, OutputPathError,
+                      perform_dips)
 
     path, _ = video
     with pytest.raises(OutputPathError, match="output path"):
@@ -545,7 +544,7 @@ def test_error_types_raise_where_documented(tmp_path, video):
         perform_dips(job)
     assert isinstance(ei.value.__cause__, KeyError)
 
-    with pytest.raises(DeviceError, match="unknown backend"):
+    with pytest.raises(TypeError, match="backend"):
         DiPsEngine(DiPsProperties(), 16, 24, backend="cuda")
 
 
@@ -553,11 +552,11 @@ def test_perform_dips_reuses_caller_reader(tmp_path, monkeypatch):
     """A pre-opened DiPsJob.reader must be consumed, not re-opened — a
     single-session network source rejects a second overlapping connect
     (the CLI's --flicker-hz fps probe relies on this)."""
-    from dips_tpu import io as io_pkg
-    from dips_tpu.app import DiPsJob, perform_dips
-    from dips_tpu.io import moving_square_clip, write_clip
-    from dips_tpu.io.gstreamer import open_video
-    import dips_tpu.io.gstreamer as gst_mod
+    from dips import io as io_pkg
+    from dips.app import DiPsJob, perform_dips
+    from dips.io import moving_square_clip, write_clip
+    from dips.io.gstreamer import open_video
+    import dips.io.gstreamer as gst_mod
     path = str(tmp_path / "in.avi")
     write_clip(moving_square_clip(n=6, height=24, width=32), path)
     rd = open_video(path, "opencv")

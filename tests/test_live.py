@@ -5,10 +5,10 @@ engine rebuild with state carry-over, and display-path helpers."""
 import numpy as np
 import pytest
 
-from dips_tpu.live import LiveController, _to_bgr, rebuild_engine, run_live
-from dips_tpu.models import DiPsEngine
-from dips_tpu.properties import (ChromaFilter, DiPsFilter, DiPsMethod,
-                                 DiPsProperties, OutputMode)
+from dips.live import LiveController, _to_bgr, rebuild_engine, run_live
+from dips.models import DiPsEngine
+from dips.properties import (ChromaFilter, DiPsFilter, DiPsMethod,
+                             DiPsProperties, OutputMode)
 from tests.conftest import make_clip
 
 
@@ -148,16 +148,16 @@ def test_run_live_headless_fails_gracefully():
 def test_cli_live_with_input_uses_that_source(monkeypatch, tmp_path):
     """--live --input FILE previews the file (or a network URI), not the
     webcam: the CLI must open the given source and hand it to run_live."""
-    from dips_tpu import cli as cli_mod
-    from dips_tpu import live as live_mod
-    from dips_tpu.io import moving_square_clip, write_clip
+    from dips import cli as cli_mod
+    from dips import live as live_mod
+    from dips.io import moving_square_clip, write_clip
 
     p = str(tmp_path / "clip.avi")
     write_clip(moving_square_clip(n=2, height=16, width=24), p, fps=10)
 
     seen = {}
 
-    def fake_run_live(props, backend="auto", reader=None, **kw):
+    def fake_run_live(props, reader=None, **kw):
         seen["reader"] = reader
         if reader is not None:
             reader.close()
@@ -176,8 +176,8 @@ def test_cli_live_with_input_uses_that_source(monkeypatch, tmp_path):
 def test_controller_event_toggle():
     """'e' toggles motion-event detection without an engine rebuild and
     surfaces the mode in the HUD."""
-    from dips_tpu.live import LiveController
-    from dips_tpu.properties import DiPsProperties
+    from dips.live import LiveController
+    from dips.properties import DiPsProperties
 
     ctl = LiveController(DiPsProperties())
     assert not ctl.events_enabled
@@ -195,9 +195,9 @@ def test_run_live_event_loop_with_stubbed_display(monkeypatch, capsys):
     must print a closed motion event and flag MOTION in the title."""
     import cv2
     import numpy as np
-    from dips_tpu import live as live_mod
-    from dips_tpu.properties import (DiPsFilter, DiPsProperties,
-                                     OutputMode)
+    from dips import live as live_mod
+    from dips.properties import (DiPsFilter, DiPsProperties,
+                                 OutputMode)
     from tests.conftest import make_clip
 
     h, w = 16, 24
@@ -247,9 +247,9 @@ def test_run_live_roi_overlay_and_pixels(monkeypatch):
     friendly error, not a traceback."""
     import cv2
     import numpy as np
-    from dips_tpu import live as live_mod
-    from dips_tpu.properties import (DiPsFilter, DiPsProperties,
-                                     OutputMode)
+    from dips import live as live_mod
+    from dips.properties import (DiPsFilter, DiPsProperties,
+                                 OutputMode)
     from tests.conftest import make_clip
 
     h, w = 16, 24
@@ -314,7 +314,7 @@ def test_run_live_auto_refresh_repins_baseline(monkeypatch, capsys):
     policy: the snapshot is re-pinned (printed) and the post-cut diff
     goes quiet against the new baseline."""
     import cv2
-    from dips_tpu import live as live_mod
+    from dips import live as live_mod
 
     h, w = 16, 24
     frames = ([np.full((h, w, 3), 30, np.uint8)] * 6

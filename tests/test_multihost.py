@@ -18,7 +18,7 @@ import sys
 import numpy as np
 import pytest
 
-from dips_tpu.properties import DiPsProperties, DiPsFilter
+from dips.properties import DiPsProperties, DiPsFilter
 
 from tests._mh_worker import (BATCH, FRAMES_PER_RANK, H, ROUNDS, S_GLOBAL,
                               W, make_clip)
@@ -37,23 +37,19 @@ def _rank_of(si: int) -> int:
     return 0 if si < S_GLOBAL // 2 else 1
 
 
-def _expected(ring=False, raw=False):
+def _expected(raw=False):
     """Single-process reference: all 8 streams on the test process's
     8-device mesh, same clips, same per-round feeds (streams of a rank
     with a zero round pass empty lists, exactly like the cluster).
-    ``ring``: the pallas ring-carry protocol — the cluster must be
-    bit-identical to the SAME kernel running single-process.  ``raw``:
-    the ABSDIFF events-fleet shape (u8 carried global state)."""
-    from dips_tpu.parallel import MultiStreamEngine
+    ``raw``: the ABSDIFF events-fleet shape (u8 carried global state)."""
+    from dips.parallel import MultiStreamEngine
     if raw:
-        from dips_tpu.properties import OutputMode
+        from dips.properties import OutputMode
         props = DiPsProperties(output=OutputMode.ABSDIFF, temporal_size=2)
     else:
         props = DiPsProperties(window_size=3, temporal_size=2,
                                filter=DiPsFilter.UNFILTERED)
-    eng = MultiStreamEngine(props, H, W, n_streams=S_GLOBAL, batch=BATCH,
-                            backend="pallas" if ring else "xla",
-                            ring_carry=ring)
+    eng = MultiStreamEngine(props, H, W, n_streams=S_GLOBAL, batch=BATCH)
     clips = [make_clip(n=FRAMES_PER_RANK[_rank_of(si)], h=H, w=W,
                        seed=100 + si) for si in range(S_GLOBAL)]
     cursors = [0] * S_GLOBAL
@@ -90,13 +86,12 @@ def _run_cluster(tmp_path, extra=()):
     return logs
 
 
-@pytest.mark.parametrize("extra", [(), ("--checkpoint",), ("--ring",),
-                                   ("--ring", "--raw")],
+@pytest.mark.parametrize("extra", [(), ("--checkpoint",), ("--raw",),
+                                   ("--raw", "--checkpoint")],
                          ids=["fresh", "checkpoint-roundtrip",
-                              "pallas-ring-carry", "raw-ring-fleet"])
+                              "raw-fleet", "raw-fleet-checkpoint"])
 def test_two_process_cluster_matches_single_process(tmp_path, extra):
-    exp_outs, exp_stats, exp_gmeans = _expected(ring="--ring" in extra,
-                                                raw="--raw" in extra)
+    exp_outs, exp_stats, exp_gmeans = _expected(raw="--raw" in extra)
 
     _run_cluster(tmp_path, extra)
 
@@ -131,7 +126,7 @@ def test_init_multihost_single_process_fallback_and_idempotency():
     code = (
         "import jax\n"
         "jax.config.update('jax_platforms', 'cpu')\n"
-        "from dips_tpu.parallel import init_multihost\n"
+        "from dips.parallel import init_multihost\n"
         "a = init_multihost()\n"
         "b = init_multihost()\n"
         "assert a == b and a.process_count == 1, (a, b)\n"

@@ -4,10 +4,10 @@ import numpy as np
 import jax
 import pytest
 
-from dips_tpu.parallel import MultiStreamEngine, make_sharded_step, stream_mesh
-from dips_tpu.models import DiPsEngine
-from dips_tpu.ops.oracle import DiPsOracle
-from dips_tpu.properties import DiPsFilter, DiPsProperties, OutputMode
+from dips.parallel import MultiStreamEngine, make_sharded_step, stream_mesh
+from dips.models import DiPsEngine
+from dips.ops.oracle import DiPsOracle
+from dips.properties import DiPsFilter, DiPsProperties, OutputMode
 from tests.conftest import make_clip
 
 
@@ -163,28 +163,25 @@ def test_stream_count_validation():
         MultiStreamEngine(props, 8, 16, n_streams=5, batch=2)
 
 
-def test_pallas_backend_under_shard_map():
-    """The fused kernel composes with vmap + shard_map (interpret on CPU)
-    and matches the XLA backend bit-for-bit."""
+def test_sharded_step_matches_single_engines():
+    """The vmapped step under shard_map over the 8-device mesh matches
+    eight single-stream engines bit-for-bit."""
     props = DiPsProperties(window_size=3, temporal_size=2,
                            filter=DiPsFilter.UNFILTERED)
-    feeds = [[make_clip(n=2, h=12, w=40, seed=s)[i] for i in range(2)]
-             for s in range(8)]
-    ms_p = MultiStreamEngine(props, 12, 40, n_streams=8, batch=2,
-                             backend="pallas")
-    out_p, stats_p, g_p = ms_p.process_batch(feeds)
-    ms_x = MultiStreamEngine(props, 12, 40, n_streams=8, batch=2,
-                             backend="xla")
-    out_x, stats_x, g_x = ms_x.process_batch(feeds)
-    np.testing.assert_array_equal(out_p, out_x)
-    np.testing.assert_allclose(stats_p, stats_x, atol=1e-6)
+    clips = [make_clip(n=2, h=12, w=40, seed=s) for s in range(8)]
+    ms = MultiStreamEngine(props, 12, 40, n_streams=8, batch=2)
+    out, stats, _ = ms.process_batch([list(c) for c in clips])
+    for s, c in enumerate(clips):
+        eo, es = DiPsEngine(props, 12, 40, batch=2).process_frames(list(c))
+        np.testing.assert_array_equal(out[s], eo)
+        np.testing.assert_allclose(stats[s], es, atol=1e-6)
 
 
 def test_run_dips_on_files_cli(tmp_path, capsys):
     """Multi-video CLI: 3 videos of different lengths, outputs truncated per
     stream, single-stream parity for stream 0."""
-    from dips_tpu.cli import main as cli_main
-    from dips_tpu.io import VideoReader, moving_square_clip, write_clip
+    from dips.cli import main as cli_main
+    from dips.io import VideoReader, moving_square_clip, write_clip
     lens = [10, 7, 5]
     paths = []
     clips = []
@@ -207,8 +204,8 @@ def test_run_dips_on_files_cli(tmp_path, capsys):
 def test_multi_input_cli_raw_mode(tmp_path, capsys):
     """Raw modes work through the multi-stream CLI path too."""
     import os
-    from dips_tpu.cli import main as cli_main
-    from dips_tpu.io import moving_square_clip, write_clip
+    from dips.cli import main as cli_main
+    from dips.io import moving_square_clip, write_clip
     p = str(tmp_path / "v.avi")
     write_clip(moving_square_clip(n=4, height=16, width=24), p)
     rc = cli_main(["--inputs", p, "--output-dir", str(tmp_path / "o"),
@@ -234,10 +231,10 @@ def test_rowsharded_matches_single_device():
     """One stream with rows sharded over 8 devices == single-device path
     (exercises the ppermute halo exchange for every window size)."""
     import jax.numpy as jnp
-    from dips_tpu.ops import reference
-    from dips_tpu.ops.reference import pad_geometry
-    from dips_tpu.parallel.rowsharded import make_rowsharded_step
-    from dips_tpu.parallel import stream_mesh
+    from dips.ops import reference
+    from dips.ops.reference import pad_geometry
+    from dips.parallel.rowsharded import make_rowsharded_step
+    from dips.parallel import stream_mesh
 
     h, w, b, t = 32, 40, 4, 2
     hp, wp = pad_geometry(h, w)
@@ -267,7 +264,7 @@ def test_rowsharded_matches_single_device():
 
 
 def test_rowsharded_rejects_too_small_slabs():
-    from dips_tpu.parallel.rowsharded import make_rowsharded_step
+    from dips.parallel.rowsharded import make_rowsharded_step
     import jax.numpy as jnp
     mesh = jax.sharding.Mesh(np.asarray(jax.devices()), ("rows",))
     props = DiPsProperties(window_size=7, temporal_size=1)
@@ -281,9 +278,9 @@ def test_rowsharded_rejects_too_small_slabs():
 
 def test_grid2d_streams_by_rows():
     """2-D mesh (2 streams x 4 row slabs): matches single-device runs."""
-    from dips_tpu.ops import reference
-    from dips_tpu.ops.reference import pad_geometry
-    from dips_tpu.parallel.grid2d import grid_mesh, make_grid_step
+    from dips.ops import reference
+    from dips.ops.reference import pad_geometry
+    from dips.parallel.grid2d import grid_mesh, make_grid_step
     import jax.numpy as jnp
 
     props = DiPsProperties(window_size=3, temporal_size=2,
@@ -316,7 +313,7 @@ def test_grid2d_streams_by_rows():
 
 def test_multistream_engine_on_2d_grid_mesh():
     """MultiStreamEngine over a (stream x rows) mesh == 1-D mesh results."""
-    from dips_tpu.parallel.grid2d import grid_mesh
+    from dips.parallel.grid2d import grid_mesh
     props = DiPsProperties(window_size=3, temporal_size=2,
                            filter=DiPsFilter.UNFILTERED)
     h, w = 32, 40
@@ -334,8 +331,8 @@ def test_multistream_engine_on_2d_grid_mesh():
 
 def test_mesh_cli_2d_grid(tmp_path, capsys):
     """--mesh 2x4 routes multi-input runs through the 2-D grid."""
-    from dips_tpu.cli import main as cli_main
-    from dips_tpu.io import VideoReader, moving_square_clip, write_clip
+    from dips.cli import main as cli_main
+    from dips.io import VideoReader, moving_square_clip, write_clip
     paths = []
     for i in range(2):
         p = str(tmp_path / f"v{i}.avi")
@@ -352,32 +349,32 @@ def test_mesh_cli_2d_grid(tmp_path, capsys):
             assert len(list(r)) == 6
 
 
-def test_mesh_cli_slab_impl(tmp_path, capsys):
-    """--slab-impl extended reaches the grid step builders through the
-    CLI batch surface and produces the same videos as the bands default."""
-    from dips_tpu.cli import main as cli_main
-    from dips_tpu.io import VideoReader, moving_square_clip, write_clip
+def test_mesh_cli_grid_matches_stream_mesh(tmp_path, capsys):
+    """--mesh 2x4 (streams x row slabs) through the CLI batch surface
+    writes the same videos as the 1-D stream mesh."""
+    from dips.cli import main as cli_main
+    from dips.io import VideoReader, moving_square_clip, write_clip
     paths = []
     for i in range(2):
         p = str(tmp_path / f"v{i}.avi")
         write_clip(moving_square_clip(n=4, height=32, width=48, seed=i), p)
         paths.append(p)
     frames = {}
-    for impl in ("bands", "extended"):
-        outdir = str(tmp_path / f"out_{impl}")
+    for mesh in ("2x4", "2x1"):
+        outdir = str(tmp_path / f"out_{mesh}")
         rc = cli_main(["--inputs", *paths, "--output-dir", outdir,
-                       "--mesh", "2x4", "--temporal=2", "--batch=4",
-                       "--filter=none", "--slab-impl", impl])
+                       "--mesh", mesh, "--temporal=2", "--batch=4",
+                       "--filter=none"])
         assert rc == 0
-        with VideoReader(str(tmp_path / f"out_{impl}" / "v0.dips.avi")) as r:
-            frames[impl] = list(r)
-    assert len(frames["bands"]) == 4
-    for a, e in zip(frames["bands"], frames["extended"]):
+        with VideoReader(str(tmp_path / f"out_{mesh}" / "v0.dips.avi")) as r:
+            frames[mesh] = list(r)
+    assert len(frames["2x4"]) == 4
+    for a, e in zip(frames["2x4"], frames["2x1"]):
         np.testing.assert_array_equal(a, e)
 
 
 def test_mesh_cli_bad_spec(tmp_path, capsys):
-    from dips_tpu.cli import main as cli_main
+    from dips.cli import main as cli_main
     rc = cli_main(["--inputs", "x.avi", "--output-dir", str(tmp_path),
                    "--mesh", "oops"])
     assert rc == 2
@@ -425,9 +422,9 @@ def test_multistream_heatmaps_and_reset():
 def test_run_dips_on_files_fps_mismatch_rejected(tmp_path):
     """Code-review regression: mixed-fps inputs must error, not silently
     retime the faster stream to the first reader's clock."""
-    from dips_tpu.app import run_dips_on_files
-    from dips_tpu.errors import VideoPathError
-    from dips_tpu.io import moving_square_clip, write_clip
+    from dips.app import run_dips_on_files
+    from dips.errors import VideoPathError
+    from dips.io import moving_square_clip, write_clip
     a = str(tmp_path / "a.avi")
     b = str(tmp_path / "b.avi")
     write_clip(moving_square_clip(n=4, height=16, width=24), a, fps=30)
@@ -441,23 +438,16 @@ def test_stream_mesh_overrequest_rejected():
         stream_mesh(n_devices=99)
 
 
-def test_grid_mesh_accepts_explicit_pallas():
-    """The 2-D grid runs the fused stacked-slab kernel when asked (full
-    parity coverage in test_grid2d_pallas.py / test_grid2d_ring.py).
-    ring_carry defaults ON for the pallas body (auto, matching the 1-D
-    mesh) and stays rejected on the xla body."""
-    from dips_tpu.parallel.grid2d import grid_mesh
+def test_grid_mesh_builds_the_grid_step():
+    """A ("stream", "rows") mesh runs the 2-D grid step: state is laid
+    out over both axes."""
+    from dips.parallel.grid2d import grid_mesh
     eng = MultiStreamEngine(DiPsProperties(), 32, 40, n_streams=2, batch=2,
-                            mesh=grid_mesh(2, 4), backend="pallas")
-    assert eng.backend == "pallas" and eng.ring_carry
-    tail = MultiStreamEngine(DiPsProperties(), 32, 40, n_streams=2, batch=2,
-                             mesh=grid_mesh(2, 4), backend="pallas",
-                             ring_carry=False)
-    assert not tail.ring_carry
-    with pytest.raises(ValueError, match="ring_carry"):
-        MultiStreamEngine(DiPsProperties(), 32, 40, n_streams=2, batch=2,
-                          mesh=grid_mesh(2, 4), backend="xla",
-                          ring_carry=True)
+                            mesh=grid_mesh(2, 4))
+    assert len(eng._heatmap.sharding.device_set) == 1  # before a step
+    eng.process_batch([list(make_clip(n=2, h=32, w=40, seed=k))
+                       for k in range(2)])
+    assert len(eng._heatmap.sharding.device_set) == 8
 
 
 def test_per_stream_snapshot():
@@ -481,16 +471,16 @@ def test_per_stream_snapshot():
     assert np.all(stats[:, 0, 1] == 0)
 
 
-@pytest.mark.parametrize("backend", ["pallas", "xla"])
-def test_per_stream_checkpoint_roundtrip(tmp_path, backend):
+@pytest.mark.parametrize("n_devices", [4, 2])
+def test_per_stream_checkpoint_roundtrip(tmp_path, n_devices):
     """save_stream/load_stream restore ONE slot mid-stream without touching
     siblings: after a detour and a reload, the engine continues bit-identically
-    to a twin that never detoured (ring-carry pallas and XLA tail paths)."""
+    to a twin that never detoured (one or two streams per device)."""
     props = DiPsProperties(window_size=3, temporal_size=2,
                            filter=DiPsFilter.UNFILTERED)
     h, w = 12, 40
     clips = [make_clip(n=6, h=h, w=w, seed=80 + s) for s in range(4)]
-    kw = dict(n_streams=4, batch=3, backend=backend, mesh=stream_mesh(4))
+    kw = dict(n_streams=4, batch=3, mesh=stream_mesh(n_devices))
     ctl = MultiStreamEngine(props, h, w, **kw)   # uninterrupted control
     ms = MultiStreamEngine(props, h, w, **kw)
     feeds1 = [list(c[:3]) for c in clips]
@@ -559,16 +549,16 @@ def test_slot_checkpoint_interops_with_single_engine(tmp_path):
     np.testing.assert_array_equal(out_a, out_b)
 
 
-@pytest.mark.parametrize("backend", ["pallas", "xla"])
-def test_multistream_hwc_layout_bit_exact(backend):
+@pytest.mark.parametrize("n_devices", [8, 1])
+def test_multistream_hwc_layout_bit_exact(n_devices):
     """input_layout='hwc' (device-side planarize) matches the host-planar
-    multi-stream engine bit-for-bit on both step protocols, including
-    empty feeds, short feeds and a failed stream."""
+    multi-stream engine bit-for-bit, one or all streams per device,
+    including empty feeds, short feeds and a failed stream."""
     props = DiPsProperties(window_size=3, temporal_size=2,
                            filter=DiPsFilter.UNFILTERED)
     h, w = 12, 40
     clips = [make_clip(n=6, h=h, w=w, seed=100 + s) for s in range(8)]
-    kw = dict(n_streams=8, batch=3, backend=backend)
+    kw = dict(n_streams=8, batch=3, mesh=stream_mesh(n_devices))
     mp = MultiStreamEngine(props, h, w, input_layout="planar", **kw)
     mh = MultiStreamEngine(props, h, w, input_layout="hwc", **kw)
     feeds1 = [list(c[:3]) for c in clips]
@@ -602,8 +592,8 @@ def test_multistream_hwc_bgr_layout():
 def test_run_dips_on_files_hwc_layout(tmp_path):
     """--input-layout hwc flows through the multi-video batch path and
     produces the same outputs as the planar default."""
-    from dips_tpu.app import run_dips_on_files
-    from dips_tpu.io import VideoReader, moving_square_clip, write_clip
+    from dips.app import run_dips_on_files
+    from dips.io import VideoReader, moving_square_clip, write_clip
     paths = []
     for i in range(2):
         c = moving_square_clip(n=6, height=32, width=48, seed=i)
@@ -650,22 +640,26 @@ def test_load_cancels_pending_snapshot(tmp_path):
     np.testing.assert_allclose(st2, st1, atol=1e-6)
 
 
-def test_slab_impl_validated_on_1d_mesh():
-    """Advisor r4: a 1-D stream mesh ignores slab_impl, but a typo'd
-    fleet launch must fail loudly instead of silently proceeding."""
+@pytest.mark.parametrize("option", ["backend", "ring_carry", "slab_impl"])
+def test_removed_options_rejected(option):
+    """The options that chose between step implementations are gone: a
+    launch that still passes one fails loudly instead of silently
+    proceeding."""
     props = DiPsProperties(window_size=3, temporal_size=2)
-    with pytest.raises(ValueError, match="slab_impl"):
+    with pytest.raises(TypeError, match=option):
         MultiStreamEngine(props, 12, 40, n_streams=8, batch=2,
-                          slab_impl="nope")
+                          **{option: None})
+    with pytest.raises(TypeError, match=option):
+        DiPsEngine(props, 12, 40, batch=2, **{option: None})
 
 
 def test_mesh_cli_2d_grid_raw_modes(tmp_path, capsys):
-    """--mesh SxR accepts raw modes (VERDICT r4 item 1): an absdiff fleet
+    """--mesh SxR accepts raw modes: an absdiff fleet
     runs on the 2-D grid and writes per-stream diff videos identical to
     the 1-D mesh run; a stats_only fleet needs no output dir at all."""
     import json
-    from dips_tpu.cli import main as cli_main
-    from dips_tpu.io import VideoReader, moving_square_clip, write_clip
+    from dips.cli import main as cli_main
+    from dips.io import VideoReader, moving_square_clip, write_clip
     paths = []
     for i in range(2):
         p = str(tmp_path / f"v{i}.avi")
@@ -699,8 +693,8 @@ def test_mesh_cli_events_fleet(tmp_path):
     (stats_only) with motion-event segmentation AND fleet flicker on the
     2-D grid — events/stats/flicker JSON out, zero video egress."""
     import json
-    from dips_tpu.cli import main as cli_main
-    from dips_tpu.io import moving_square_clip, write_clip
+    from dips.cli import main as cli_main
+    from dips.io import moving_square_clip, write_clip
     paths = []
     for i in range(2):
         p = str(tmp_path / f"cam{i}.avi")

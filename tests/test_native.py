@@ -9,7 +9,7 @@ import threading
 import numpy as np
 import pytest
 
-from dips_tpu import native
+from dips import native
 
 
 def _ref_planarize(frame, hp, wp, swap_rb):
@@ -51,11 +51,11 @@ def test_interleave_gray_broadcast(rng):
     "w", [1, 15, 16, 17, 32, 33, 47, 48, 49, 63, 64, 65, 127, 128, 129])
 def test_layout_simd_tail_sweep(w, tier, rng, monkeypatch):
     """Widths straddling the 16- and 64-pixel SIMD block boundaries, on
-    every tier the host supports (DIPS_TPU_SIMD caps the dispatch): the
+    every tier the host supports (DIPS_SIMD caps the dispatch): the
     vector body and the tail must agree with the numpy reference at every
     split (also exercised on non-x86 hosts, where everything is scalar)."""
     if native.NATIVE_AVAILABLE:
-        monkeypatch.setenv("DIPS_TPU_SIMD", tier)
+        monkeypatch.setenv("DIPS_SIMD", tier)
         if tier != "scalar" and native.simd_level() == 0:
             pytest.skip(f"host cannot run the {tier} tier")
     elif tier != "scalar":
@@ -75,20 +75,20 @@ def test_layout_simd_tail_sweep(w, tier, rng, monkeypatch):
 
 
 def test_simd_level_reporting():
-    """simd_level() reflects the DIPS_TPU_SIMD cap and names resolve."""
+    """simd_level() reflects the DIPS_SIMD cap and names resolve."""
     lvl = native.simd_level()
     assert lvl in native.SIMD_NAMES
     if native.NATIVE_AVAILABLE:
         import os
-        old = os.environ.get("DIPS_TPU_SIMD")
+        old = os.environ.get("DIPS_SIMD")
         try:
-            os.environ["DIPS_TPU_SIMD"] = "scalar"
+            os.environ["DIPS_SIMD"] = "scalar"
             assert native.simd_level() == 0
         finally:
             if old is None:
-                os.environ.pop("DIPS_TPU_SIMD", None)
+                os.environ.pop("DIPS_SIMD", None)
             else:
-                os.environ["DIPS_TPU_SIMD"] = old
+                os.environ["DIPS_SIMD"] = old
     else:
         assert lvl == -1
 
@@ -155,7 +155,7 @@ def test_push_after_close_rejected(make_ring):
 def test_native_available_or_fallback():
     # In this image g++ exists, so the native path should have built.
     import shutil
-    if shutil.which("g++") and not native.os.environ.get("DIPS_TPU_NO_NATIVE"):
+    if shutil.which("g++") and not native.os.environ.get("DIPS_NO_NATIVE"):
         assert native.NATIVE_AVAILABLE
 
 
@@ -215,12 +215,12 @@ def test_frame_ring_pop_rejects_noncontiguous(make_ring):
 
 
 def test_unknown_simd_env_pins_scalar(monkeypatch):
-    """Review regression: an operator typo (DIPS_TPU_SIMD=avx2/sse3/AVX512)
+    """Review regression: an operator typo (DIPS_SIMD=avx2/sse3/AVX512)
     must pin the SAFEST tier, not silently leave the maximum running."""
     if not native.NATIVE_AVAILABLE:
         pytest.skip("native module not built")
     for bogus in ("avx2", "sse3", "AVX512", "Scalar"):
-        monkeypatch.setenv("DIPS_TPU_SIMD", bogus)
+        monkeypatch.setenv("DIPS_SIMD", bogus)
         assert native.simd_level() == 0, bogus
 
 

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from dips_tpu.ops import networks
+from dips.ops import networks
 
 
 @pytest.mark.parametrize("n", list(range(1, 17)) + [25, 49])

@@ -5,9 +5,9 @@ import cv2
 import numpy as np
 import pytest
 
-from dips_tpu.ops import oracle
-from dips_tpu.properties import (ChromaFilter, DiPsFilter, DiPsMethod,
-                                 DiPsProperties, OutputMode)
+from dips.ops import oracle
+from dips.properties import (ChromaFilter, DiPsFilter, DiPsMethod,
+                             DiPsProperties, OutputMode)
 
 
 @pytest.mark.parametrize("window", [1, 3, 5, 7])

@@ -22,16 +22,16 @@ is CONSTANT ZERO (the diff map degenerates to the baseline itself).
 The rebuild implements the true centered odd-window median by default
 (ops/oracle.py), pinned by these tests — and offers the reference's exact
 behaviour behind ``DiPsProperties.quirk_compat``, pinned bit-for-bit
-against the WGSL replica here on every backend (oracle / XLA / Pallas).
+against the WGSL replica here (oracle and the XLA step).
 """
 
 import numpy as np
 import pytest
 
-from dips_tpu.models import DiPsEngine
-from dips_tpu.ops import oracle
-from dips_tpu.ops.oracle import DiPsOracle
-from dips_tpu.properties import DiPsFilter, DiPsMethod, DiPsProperties
+from dips.models import DiPsEngine
+from dips.ops import oracle
+from dips.ops.oracle import DiPsOracle
+from dips.properties import DiPsFilter, DiPsMethod, DiPsProperties
 
 
 def wgsl_replica_spatial_filter(plane: np.ndarray, window: int) -> np.ndarray:
@@ -107,7 +107,7 @@ def test_quirk_networks_select_matches_oracle(window):
     """The selection-network implementation (shared by the XLA and Pallas
     paths) agrees with the oracle's independent partition-based one."""
     import jax.numpy as jnp
-    from dips_tpu.ops import reference
+    from dips.ops import reference
     r = np.random.default_rng(window + 10)
     plane = r.integers(0, 511, (9, 12)).astype(np.float32)
     got = np.asarray(reference.spatial_median(
@@ -132,20 +132,20 @@ def test_quirk_w3_diff_map_is_the_baseline():
     assert np.all(outs[1:] == 128)
 
 
-@pytest.mark.parametrize("window,backend", [(3, "xla"), (5, "xla"),
-                                            (7, "xla"), (5, "pallas"),
-                                            (7, "pallas")])
-def test_quirk_engine_matches_oracle(window, backend):
+@pytest.mark.parametrize("window,method", [
+    (3, DiPsMethod.PER_FRAME), (5, DiPsMethod.PER_FRAME),
+    (7, DiPsMethod.PER_FRAME), (5, DiPsMethod.OVERALL),
+    (7, DiPsMethod.OVERALL)])
+def test_quirk_engine_matches_oracle(window, method):
     from tests.test_engine_vs_oracle import assert_close
     r = np.random.default_rng(window)
     clip = r.integers(0, 256, (7, 16, 24, 3), np.uint8)
     props = DiPsProperties(window_size=window, temporal_size=2,
-                           quirk_compat=True, method=DiPsMethod.PER_FRAME,
+                           quirk_compat=True, method=method,
                            filter=DiPsFilter.UNFILTERED)
     o = DiPsOracle(props)
     exp_out, exp_stats = o.run(clip)
-    eng = DiPsEngine(props, clip.shape[1], clip.shape[2], batch=3,
-                     backend=backend)
+    eng = DiPsEngine(props, clip.shape[1], clip.shape[2], batch=3)
     got_out, got_stats = eng.process_frames(list(clip))
     assert_close(exp_out, exp_stats, got_out, got_stats, True,
                  clip.shape[1] * clip.shape[2])

@@ -9,11 +9,11 @@ re-pins the OVERALL baseline when the scene changes wholesale."""
 import numpy as np
 import pytest
 
-from dips_tpu import DiPsJob, DiPsProperties, perform_dips
-from dips_tpu.cli import main as cli_main
-from dips_tpu.io.synthetic import write_clip
-from dips_tpu.ops.refresh import BaselineRefreshPolicy
-from dips_tpu.properties import DiPsMethod
+from dips import DiPsJob, DiPsProperties, perform_dips
+from dips.cli import main as cli_main
+from dips.io.synthetic import write_clip
+from dips.ops.refresh import BaselineRefreshPolicy
+from dips.properties import DiPsMethod
 
 
 def row(changed, mean_abs=0.1):
@@ -100,15 +100,13 @@ def test_perform_dips_recovers_from_a_scene_cut(tmp_path):
 
     # without auto-refresh the post-cut frames diff hot forever
     base = DiPsJob(properties=props, video_path=path,
-                   output_path=str(tmp_path / "plain.avi"), batch=4,
-                   backend="xla")
+                   output_path=str(tmp_path / "plain.avi"), batch=4)
     stats = perform_dips(base)
     assert stats[-1, 3] / pixels > 0.9
     assert base.baseline_refreshes is None  # artifact only when enabled
 
     job = DiPsJob(properties=props, video_path=path,
                   output_path=str(tmp_path / "auto.avi"), batch=4,
-                  backend="xla",
                   auto_refresh=dict(threshold=0.5, persist=2))
     stats = perform_dips(job)
     assert stats.shape[0] == n_a + n_b
@@ -145,7 +143,7 @@ def test_cli_auto_refresh(tmp_path, capsys):
     path, n_a, _ = scene_cut_clip(tmp_path)
     rc = cli_main(["--input", path, "--output", str(tmp_path / "o.avi"),
                    "--win_size", "1", "--temporal", "1", "--batch", "4",
-                   "--backend", "xla", "--auto-refresh", "0.5:2"])
+                   "--auto-refresh", "0.5:2"])
     assert rc == 0
     out = capsys.readouterr().out
     assert f"auto-refresh fired at frame(s): {n_a + 1}" in out
@@ -155,7 +153,7 @@ def test_cli_auto_refresh_quiet_run(tmp_path, capsys):
     frames = np.full((8, 64, 96, 3), 30, np.uint8)
     path = write_clip(frames, str(tmp_path / "still.avi"))
     rc = cli_main(["--input", path, "--output", str(tmp_path / "o.avi"),
-                   "--backend", "xla", "--auto-refresh", "0.5"])
+                   "--auto-refresh", "0.5"])
     assert rc == 0
     assert "no scene change detected" in capsys.readouterr().out
 
@@ -181,11 +179,11 @@ def test_cli_auto_refresh_live_arms_the_preview(monkeypatch):
     'a' toggle (ADVICE r2) — the parsed policy kwargs reach run_live."""
     seen = {}
 
-    def fake_run_live(props, backend="auto", reader=None, auto_refresh=None):
+    def fake_run_live(props, reader=None, auto_refresh=None):
         seen["auto_refresh"] = auto_refresh
         return 0
 
-    import dips_tpu.live as live_mod
+    import dips.live as live_mod
     monkeypatch.setattr(live_mod, "run_live", fake_run_live)
     rc = cli_main(["--live", "--auto-refresh", "0.5:2:8"])
     assert rc == 0
@@ -198,7 +196,7 @@ def test_cli_auto_refresh_live_arms_the_preview(monkeypatch):
 def test_run_dips_on_files_per_stream_refresh(tmp_path):
     """Scene cut on stream 0 only re-pins stream 0's baseline; the return
     gains one fired-index list per stream."""
-    from dips_tpu.app import run_dips_on_files
+    from dips.app import run_dips_on_files
 
     h, w = 32, 48
     cut = np.empty((16, h, w, 3), np.uint8)
@@ -210,7 +208,7 @@ def test_run_dips_on_files_per_stream_refresh(tmp_path):
     props = DiPsProperties(window_size=1, temporal_size=1)
     counts, stats, refreshes = run_dips_on_files(
         [p0, p1], str(tmp_path / "out"), properties=props, batch=4,
-        backend="xla", collect_stats=True,
+        collect_stats=True,
         auto_refresh=dict(threshold=0.5, persist=2))
     assert list(counts) == [16, 16]
     assert refreshes == [[7], []]  # cut at 6, persist 2; still never fires
@@ -221,7 +219,7 @@ def test_run_dips_on_files_per_stream_refresh(tmp_path):
 
 
 def test_run_dips_on_files_refresh_rejects_per_frame(tmp_path):
-    from dips_tpu.app import run_dips_on_files
+    from dips.app import run_dips_on_files
 
     clip = np.full((4, 32, 48, 3), 30, np.uint8)
     p = write_clip(clip, str(tmp_path / "c.avi"))
@@ -229,7 +227,7 @@ def test_run_dips_on_files_refresh_rejects_per_frame(tmp_path):
         run_dips_on_files(
             [p], str(tmp_path / "out"),
             properties=DiPsProperties(method=DiPsMethod.PER_FRAME),
-            backend="xla", auto_refresh=dict(threshold=0.5))
+            auto_refresh=dict(threshold=0.5))
 
 
 def test_cli_inputs_auto_refresh(tmp_path, capsys):
@@ -240,7 +238,7 @@ def test_cli_inputs_auto_refresh(tmp_path, capsys):
     p0 = write_clip(cut, str(tmp_path / "cut.avi"))
     rc = cli_main(["--inputs", p0, "--output-dir", str(tmp_path / "out"),
                    "--win_size", "1", "--temporal", "1", "--batch", "4",
-                   "--backend", "xla", "--auto-refresh", "0.5:2"])
+                   "--auto-refresh", "0.5:2"])
     assert rc == 0
     out = capsys.readouterr().out
     assert f"auto-refresh fired on {p0} at frame(s): 7" in out
@@ -260,7 +258,7 @@ def test_serve_auto_refresh_per_session(tmp_path):
     cam-A's baseline, annotated on the fired reply."""
     import threading
 
-    from dips_tpu.serve import DiPsClient, DiPsServer
+    from dips.serve import DiPsClient, DiPsServer
 
     props = DiPsProperties(window_size=1, temporal_size=1)
     srv = DiPsServer(props, 24, 40, port=0, batch=1, max_sessions=2,
@@ -300,7 +298,7 @@ def test_serve_auto_refresh_batched_and_coalesced():
     independently too."""
     import threading
 
-    from dips_tpu.serve import DiPsClient, DiPsServer
+    from dips.serve import DiPsClient, DiPsServer
 
     props = DiPsProperties(window_size=1, temporal_size=1)
     srv = DiPsServer(props, 24, 40, port=0, batch=4, max_sessions=2,
@@ -324,7 +322,7 @@ def test_serve_auto_refresh_batched_and_coalesced():
 
 
 def test_serve_auto_refresh_rejects_per_frame_and_bad_cfg():
-    from dips_tpu.serve import DiPsServer, main as serve_main
+    from dips.serve import DiPsServer, main as serve_main
 
     with pytest.raises(ValueError, match="per_frame"):
         DiPsServer(DiPsProperties(method=DiPsMethod.PER_FRAME), 24, 40,

@@ -5,8 +5,8 @@ import json
 import numpy as np
 import pytest
 
-from dips_tpu.ops.oracle import STAT_NAMES
-from dips_tpu.report import main as report_main, render_report
+from dips.ops.oracle import STAT_NAMES
+from dips.report import main as report_main, render_report
 
 
 def _write_stats(path, n=20, motion=range(6, 12)):
@@ -111,7 +111,7 @@ def test_cli_heatmap_png_and_full_report_pipeline(tmp_path):
     """The full artifact journey: CLI run writes stats + events + heatmap
     PNG; dips-report stitches them into one page."""
     import cv2
-    from dips_tpu.cli import main as cli_main
+    from dips.cli import main as cli_main
     from tests.conftest import make_clip
 
     h, w = 16, 24
@@ -143,7 +143,7 @@ def test_cli_heatmap_png_and_full_report_pipeline(tmp_path):
 
 def test_cli_heatmap_png_rejected_outside_file_mode(tmp_path, capsys):
     import numpy as np
-    from dips_tpu.cli import main as cli_main
+    from dips.cli import main as cli_main
     rng = np.random.default_rng(0)
     rgba = rng.integers(0, 256, (8, 12, 4), np.uint8)
     np.concatenate([np.zeros(4, np.uint8), rgba.ravel()]).tofile(
@@ -188,7 +188,7 @@ def test_cli_heatmap_png_rejected_in_inputs_and_live_modes(tmp_path,
                                                            capsys):
     """Review regression: --inputs and --live silently ignored
     --heatmap-png instead of rejecting it."""
-    from dips_tpu.cli import main as cli_main
+    from dips.cli import main as cli_main
     rc = cli_main(["--inputs", "a.avi", "b.avi", "--output-dir",
                    str(tmp_path), "--heatmap-png", str(tmp_path / "h.png")])
     assert rc == 2 and "--heatmap-png" in capsys.readouterr().err
@@ -200,7 +200,7 @@ def test_cli_json_artifacts_rejected_in_silent_modes(tmp_path, capsys):
     """--live/--thumbnail/--subsample return before the artifact tail:
     --stats-json/--events-json/--dft-json must be rejected there (and
     --dft-json under --inputs) instead of silently writing nothing."""
-    from dips_tpu.cli import main as cli_main
+    from dips.cli import main as cli_main
     for flag in ("--stats-json", "--events-json", "--dft-json"):
         rc = cli_main(["--live", flag, str(tmp_path / "x.json")])
         assert rc == 2 and flag in capsys.readouterr().err
@@ -255,7 +255,7 @@ def test_report_embeds_flicker_map(tmp_path):
     fp = str(tmp_path / "flicker.png")
     with open(fp, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\nfakepng")
-    from dips_tpu.report import main as report_main
+    from dips.report import main as report_main
     out = str(tmp_path / "r.html")
     rc = report_main(["--stats-json", sp, "--flicker", fp, "-o", out])
     assert rc == 0

@@ -1,15 +1,15 @@
 """Analysis region (props.roi): statistics, changed-pixel counts, the
 heatmap and motion events reduce over a configured rectangle; output maps
-stay full-frame.  Verified against the oracle on every backend: XLA,
-Pallas interpret, the stacked-stream kernel, and the row-sharded mesh."""
+stay full-frame.  Verified against the oracle on the single-stream step,
+several streams on one device, and the row-sharded mesh."""
 
 import numpy as np
 import pytest
 
-from dips_tpu.models import DiPsEngine
-from dips_tpu.ops.oracle import DiPsOracle
-from dips_tpu.properties import (DiPsFilter, DiPsMethod, DiPsProperties,
-                                 OutputMode)
+from dips.models import DiPsEngine
+from dips.ops.oracle import DiPsOracle
+from dips.properties import (DiPsFilter, DiPsMethod, DiPsProperties,
+                             OutputMode)
 from tests.conftest import make_clip
 from tests.test_engine_vs_oracle import assert_close
 
@@ -56,7 +56,7 @@ def test_oracle_roi_semantics(clip):
     assert stats_r[:, 3].max() <= (y1 - y0) * (x1 - x0)
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("batch", [3, 5])
 @pytest.mark.parametrize("method,output,filt,exact", [
     (DiPsMethod.OVERALL, OutputMode.COLORIZE, DiPsFilter.UNFILTERED, True),
     (DiPsMethod.PER_FRAME, OutputMode.GRAYSCALE, DiPsFilter.SIGMOID, False),
@@ -64,7 +64,7 @@ def test_oracle_roi_semantics(clip):
     (DiPsMethod.OVERALL, OutputMode.THRESHOLD, DiPsFilter.UNFILTERED, True),
     (DiPsMethod.PER_FRAME, OutputMode.ABSDIFF, DiPsFilter.UNFILTERED, True),
 ])
-def test_engine_roi_matches_oracle(backend, method, output, filt, exact,
+def test_engine_roi_matches_oracle(batch, method, output, filt, exact,
                                    clip):
     props = DiPsProperties(method=method, output=output, filter=filt,
                            window_size=3, temporal_size=2, roi=ROI,
@@ -73,8 +73,7 @@ def test_engine_roi_matches_oracle(backend, method, output, filt, exact,
     exp_out, exp_stats = o.run(clip)
     if exp_out.ndim == 3:
         exp_out = exp_out[..., None]
-    eng = DiPsEngine(props, clip.shape[1], clip.shape[2], batch=5,
-                     backend=backend)
+    eng = DiPsEngine(props, clip.shape[1], clip.shape[2], batch=batch)
     got_out, got_stats = eng.process_frames(list(clip))
     y0, x0, y1, x1 = ROI
     assert_close(exp_out, exp_stats, got_out, got_stats, exact,
@@ -101,39 +100,25 @@ def test_roi_stats_differ_from_full_frame(clip):
 
 
 def test_stacked_streams_roi():
-    """Per-stream roi stats in the stacked kernel match per-stream runs
-    (stream-local roi rows must not leak across the fold)."""
-    import jax.numpy as jnp
-    from dips_tpu.ops import pallas_fused
-    from dips_tpu.ops.reference import pad_geometry
-    s, t, b, h, w = 3, 2, 4, 16, 24
-    hp, wp = pad_geometry(h, w)
-    props = DiPsProperties(window_size=3, temporal_size=t,
+    """Several streams on one device (MultiStreamEngine's per-shard body):
+    per-stream roi stats match per-stream runs (stream-local roi rows must
+    not leak across streams)."""
+    from dips.parallel import MultiStreamEngine, stream_mesh
+    s, h, w = 3, 16, 24
+    props = DiPsProperties(window_size=3, temporal_size=2,
                            filter=DiPsFilter.UNFILTERED,
                            roi=(2, 4, 10, 20))
-    rng = np.random.default_rng(7)
-    raws = [jnp.asarray(rng.integers(0, 256, (t + b, 3, hp, wp), np.uint8))
-            for _ in range(s)]
-    stacked = jnp.concatenate(raws, axis=2)
-    flags = np.tile([True, False, False, False], (s, 1))
-    valid = np.ones((s, b), bool)
-    out_s, stats_s, _, heat_s = pallas_fused.batch_step_stacked(
-        props, h, w, s, stacked, jnp.zeros((s * hp, wp), jnp.float32),
-        jnp.asarray(flags), jnp.zeros((s * hp, wp), jnp.float32),
-        jnp.asarray(valid))
-    for si in range(s):
-        out_1, stats_1, _, heat_1 = pallas_fused.batch_step(
-            props, h, w, raws[si], jnp.zeros((hp, wp), jnp.float32),
-            jnp.asarray(flags[si]), jnp.zeros((hp, wp), jnp.float32),
-            jnp.asarray(valid[si]))
-        np.testing.assert_array_equal(np.asarray(out_s)[:, :, si * hp:
-                                                        (si + 1) * hp],
-                                      np.asarray(out_1))
-        np.testing.assert_allclose(np.asarray(stats_s)[si],
-                                   np.asarray(stats_1), rtol=1e-6)
-        np.testing.assert_allclose(
-            np.asarray(heat_s)[si * hp:(si + 1) * hp], np.asarray(heat_1),
-            rtol=1e-6)
+    clips = [make_clip(n=4, h=h, w=w, seed=70 + k) for k in range(s)]
+    ms = MultiStreamEngine(props, h, w, n_streams=s, batch=4,
+                           mesh=stream_mesh(1))
+    out_s, stats_s, _ = ms.process_batch([list(c) for c in clips])
+    for si, c in enumerate(clips):
+        one = DiPsEngine(props, h, w, batch=4)
+        out_1, stats_1 = one.process_frames(list(c))
+        np.testing.assert_array_equal(out_s[si], out_1)
+        np.testing.assert_allclose(stats_s[si], stats_1, rtol=1e-6)
+        np.testing.assert_allclose(ms.heatmaps()[si], one.heatmap(),
+                                   rtol=1e-6)
 
 
 def test_rowsharded_roi_matches_single_device():
@@ -141,10 +126,10 @@ def test_rowsharded_roi_matches_single_device():
     must agree with the unsharded engine."""
     import jax
     import jax.numpy as jnp
-    from dips_tpu.parallel import stream_mesh
-    from dips_tpu.parallel.rowsharded import make_rowsharded_step
-    from dips_tpu.ops import reference
-    from dips_tpu.ops.reference import pad_geometry
+    from dips.parallel import stream_mesh
+    from dips.parallel.rowsharded import make_rowsharded_step
+    from dips.ops import reference
+    from dips.ops.reference import pad_geometry
     h, w, t, b = 64, 24, 2, 4
     hp, wp = pad_geometry(h, w)
     props = DiPsProperties(window_size=3, temporal_size=t,
@@ -172,8 +157,8 @@ def test_rowsharded_roi_matches_single_device():
 
 
 def test_cli_roi(tmp_path, capsys):
-    from dips_tpu.cli import main as cli_main
-    from dips_tpu.io import moving_square_clip, write_clip
+    from dips.cli import main as cli_main
+    from dips.io import moving_square_clip, write_clip
     import json
     path = str(tmp_path / "in.avi")
     write_clip(moving_square_clip(n=10, height=32, width=48), path)
@@ -199,8 +184,8 @@ def test_cli_roi(tmp_path, capsys):
 def test_roi_events_use_roi_pixels(tmp_path, capsys):
     """changed_frac events normalize by the ROI area, not the frame."""
     import json
-    from dips_tpu.cli import main as cli_main
-    from dips_tpu.io import moving_square_clip, write_clip
+    from dips.cli import main as cli_main
+    from dips.io import moving_square_clip, write_clip
     path = str(tmp_path / "in.avi")
     write_clip(moving_square_clip(n=12, height=32, width=48), path)
     ej = str(tmp_path / "e.json")
@@ -214,7 +199,7 @@ def test_roi_events_use_roi_pixels(tmp_path, capsys):
 def test_cli_dat_mode_roi_error_is_friendly(tmp_path, capsys):
     """--dat-dir with an roi outside the dat geometry: rc 1 + message."""
     import numpy as np
-    from dips_tpu.cli import main as cli_main
+    from dips.cli import main as cli_main
     d = tmp_path / "dumps"
     d.mkdir()
     w, h = 16, 24
@@ -234,45 +219,24 @@ def test_cli_dat_mode_roi_error_is_friendly(tmp_path, capsys):
 
 
 def test_stacked_absdiff_roi_matches_per_stream_and_oracle():
-    """The raw kernel's roi mask uses stream-local rows: stacked absdiff
-    stats/heatmap must equal per-stream runs AND the oracle."""
-    import jax.numpy as jnp
-    from dips_tpu.ops import pallas_fused
-    from dips_tpu.ops.reference import pad_geometry
-    s, t, b, h, w = 3, 2, 4, 12, 40
-    hp, wp = pad_geometry(h, w)
-    props = DiPsProperties(output=OutputMode.ABSDIFF, temporal_size=t,
+    """The raw step's roi mask uses stream-local rows: several absdiff
+    streams on one device match per-stream runs AND the oracle (stats and
+    the full-frame output: the roi must not leak into maps)."""
+    from dips.parallel import MultiStreamEngine, stream_mesh
+    s, h, w = 3, 12, 40
+    props = DiPsProperties(output=OutputMode.ABSDIFF, temporal_size=2,
                            roi=(2, 4, 10, 30))
-    rng = np.random.default_rng(11)
-    raws = [rng.integers(0, 256, (t + b, 3, hp, wp), np.uint8)
-            for _ in range(s)]
-    stacked = jnp.concatenate([jnp.asarray(r) for r in raws], axis=2)
-    flags = np.zeros((s, b), bool)
-    flags[:, 0] = True
-    valid = np.ones((s, b), bool)
-    out_s, stats_s, _, heat_s = pallas_fused.absdiff_step_stacked(
-        props, h, w, s, stacked, jnp.zeros((3, s * hp, wp), jnp.uint8),
-        jnp.asarray(flags), jnp.zeros((s * hp, wp), jnp.float32),
-        jnp.asarray(valid))
-    for si in range(s):
-        out1, stats1, _, heat1 = pallas_fused.absdiff_step(
-            props, h, w, jnp.asarray(raws[si]),
-            jnp.zeros((3, hp, wp), jnp.uint8), jnp.asarray(flags[si]),
-            jnp.zeros((hp, wp), jnp.float32), jnp.asarray(valid[si]))
-        np.testing.assert_array_equal(
-            np.asarray(out_s[:, :, si * hp:(si + 1) * hp]),
-            np.asarray(out1), err_msg=f"stream {si}")
-        np.testing.assert_allclose(np.asarray(stats_s[si]),
-                                   np.asarray(stats1), atol=1e-6)
-        np.testing.assert_allclose(
-            np.asarray(heat_s[si * hp:(si + 1) * hp]), np.asarray(heat1),
-            atol=1e-6)
-        # oracle parity for this stream (streaming over the raw frames):
-        # stats AND the full-frame output (roi must not leak into maps)
-        o = DiPsOracle(props)
-        frames_hwc = raws[si][t:, :, :h, :w].transpose(0, 2, 3, 1)
-        exp_out, exp_stats = o.run(frames_hwc)
-        np.testing.assert_allclose(np.asarray(stats1),
-                                   exp_stats, atol=1e-5)
-        got_hwc = np.asarray(out1)[:, :, :h, :w].transpose(0, 2, 3, 1)
-        np.testing.assert_array_equal(got_hwc, exp_out)
+    clips = [make_clip(n=4, h=h, w=w, seed=80 + k) for k in range(s)]
+    ms = MultiStreamEngine(props, h, w, n_streams=s, batch=4,
+                           mesh=stream_mesh(1))
+    out_s, stats_s, _ = ms.process_batch([list(c) for c in clips])
+    for si, c in enumerate(clips):
+        one = DiPsEngine(props, h, w, batch=4)
+        out1, stats1 = one.process_frames(list(c))
+        np.testing.assert_array_equal(out_s[si], out1, err_msg=f"{si}")
+        np.testing.assert_allclose(stats_s[si], stats1, atol=1e-6)
+        np.testing.assert_allclose(ms.heatmaps()[si], one.heatmap(),
+                                   atol=1e-6)
+        exp_out, exp_stats = DiPsOracle(props).run(c)
+        np.testing.assert_allclose(stats1, exp_stats, atol=1e-5)
+        np.testing.assert_array_equal(out1, exp_out)

@@ -1,13 +1,11 @@
-"""Raw (absdiff/threshold/stats-only) modes on a rows mesh (VERDICT r3
-item 4).
+"""Raw (absdiff/threshold/stats-only) modes on a rows mesh.
 
 No stencil -> no halo exchange: each shard diffs its slab independently,
-only the statistic reductions ride ICI (psum/pmax).  Row-sharding a raw
-mode is a BANDWIDTH play — the absdiff kernel is HBM-DMA-bound (~55% of
-the v5e pin rate, BASELINE.md roofline), so R row shards scale aggregate
-HBM bandwidth ~Rx for one enormous (8K-class) stream.
+only the statistic reductions cross devices (psum/pmax).  Row-sharding a
+raw mode is a bandwidth play: R row shards add up R devices' memory
+bandwidth for one enormous (8K-class) stream.
 
-Integer modes are an exact-equality contract vs the full-height kernels.
+Integer modes are an exact-equality contract vs the full-height step.
 """
 
 import numpy as np
@@ -15,11 +13,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from dips_tpu.properties import DiPsMethod, DiPsProperties, OutputMode
-from dips_tpu.ops import pallas_fused, reference
-from dips_tpu.ops.reference import pad_geometry
-from dips_tpu.parallel.rowsharded import (make_rowsharded_ring_step,
-                                          make_rowsharded_step)
+from dips.properties import DiPsMethod, DiPsProperties, OutputMode
+from dips.ops import reference
+from dips.ops.reference import pad_geometry
+from dips.parallel.rowsharded import make_rowsharded_step
 from jax.sharding import Mesh
 
 pytestmark = pytest.mark.skipif(
@@ -42,25 +39,25 @@ def _raw_inputs(props, h, w, b, seed=3):
             jnp.asarray(np.ones((b,), bool)), hp, wp)
 
 
-@pytest.mark.parametrize("backend", ["pallas", "xla"])
+@pytest.mark.parametrize("n_rows", [2, 8])
 @pytest.mark.parametrize("mode,method", [
     (OutputMode.ABSDIFF, DiPsMethod.OVERALL),
     (OutputMode.ABSDIFF, DiPsMethod.PER_FRAME),
     (OutputMode.THRESHOLD, DiPsMethod.OVERALL),
     (OutputMode.STATS_ONLY, DiPsMethod.OVERALL),
 ])
-def test_raw_rowsharded_bit_identical(backend, mode, method):
-    """rowsharded raw step == full-height kernel: maps byte-exact, stats
+def test_raw_rowsharded_bit_identical(n_rows, mode, method):
+    """rowsharded raw step == full-height step: maps byte-exact, stats
     to float tolerance (reduction order differs across shards)."""
     props = DiPsProperties(output=mode, method=method, temporal_size=2,
                            change_threshold=20)
     h, w, b = 64, 40, 4
     raw, flags, valid, hp, wp = _raw_inputs(props, h, w, b)
-    step = make_rowsharded_step(props, h, w, _mesh(), backend=backend)
+    step = make_rowsharded_step(props, h, w, _mesh(n_rows))
     bl0 = jnp.zeros((3, hp, wp), jnp.uint8)
     hm0 = jnp.zeros((hp, wp), jnp.float32)
     out, stats, nb, nh = step(raw, bl0, flags, hm0, valid)
-    eo, es, eb, eh = pallas_fused.absdiff_step(
+    eo, es, eb, eh = reference.absdiff_step(
         props, h, w, raw, jnp.zeros((3, hp, wp), jnp.uint8), flags,
         jnp.zeros((hp, wp), jnp.float32), valid)
     np.testing.assert_array_equal(np.asarray(out), np.asarray(eo))
@@ -69,18 +66,18 @@ def test_raw_rowsharded_bit_identical(backend, mode, method):
     np.testing.assert_allclose(np.asarray(nh), np.asarray(eh), atol=1e-5)
 
 
-@pytest.mark.parametrize("backend", ["pallas", "xla"])
-def test_raw_rowsharded_roi(backend):
+@pytest.mark.parametrize("n_rows", [2, 8])
+def test_raw_rowsharded_roi(n_rows):
     """roi stats fold correctly across shard-local row windows (the roi
-    spans a strict subset of the 8 slabs)."""
+    spans a strict subset of the slabs)."""
     props = DiPsProperties(output=OutputMode.ABSDIFF, temporal_size=2,
                            roi=(10, 4, 50, 36))
     h, w, b = 64, 40, 4
     raw, flags, valid, hp, wp = _raw_inputs(props, h, w, b, seed=5)
-    step = make_rowsharded_step(props, h, w, _mesh(), backend=backend)
+    step = make_rowsharded_step(props, h, w, _mesh(n_rows))
     out, stats, _, nh = step(raw, jnp.zeros((3, hp, wp), jnp.uint8), flags,
                              jnp.zeros((hp, wp), jnp.float32), valid)
-    eo, es, _, eh = pallas_fused.absdiff_step(
+    eo, es, _, eh = reference.absdiff_step(
         props, h, w, raw, jnp.zeros((3, hp, wp), jnp.uint8), flags,
         jnp.zeros((hp, wp), jnp.float32), valid)
     np.testing.assert_array_equal(np.asarray(out), np.asarray(eo))
@@ -90,50 +87,43 @@ def test_raw_rowsharded_roi(backend):
 
 @pytest.mark.parametrize("method", [DiPsMethod.OVERALL,
                                     DiPsMethod.PER_FRAME])
-def test_raw_rowsharded_ring_bit_identical(method):
-    """Ring protocol: carried prev/baseline slab state across two batches
-    == absdiff_step_ring, byte-exact."""
+def test_raw_rowsharded_two_batches_bit_identical(method):
+    """Carried baseline/heatmap slab state across two batches (the tail
+    protocol: the last T raw frames lead the next batch) == the
+    full-height step, byte-exact."""
     props = DiPsProperties(output=OutputMode.ABSDIFF, method=method,
                            temporal_size=2)
     h, w, b = 64, 40, 4
+    t = props.temporal_size
     hp, wp = pad_geometry(h, w)
     r = np.random.default_rng(11)
-    step = make_rowsharded_ring_step(props, h, w, _mesh())
-    prev = ep = jnp.zeros((3, hp, wp), jnp.uint8)
+    step = make_rowsharded_step(props, h, w, _mesh())
     bl = eb = jnp.zeros((3, hp, wp), jnp.uint8)
     hm = eh = jnp.zeros((hp, wp), jnp.float32)
-    seed = jnp.int32(1)
     valid = jnp.asarray(np.ones((b,), bool))
+    frames = np.zeros((2 * b, 3, hp, wp), np.uint8)
+    frames[..., :h, :w] = r.integers(0, 256, (2 * b, 3, h, w), np.uint8)
+    tail = np.stack([frames[0]] * t)
     for bi in range(2):
-        raw = np.zeros((b, 3, hp, wp), np.uint8)
-        raw[..., :h, :w] = r.integers(0, 256, (b, 3, h, w), np.uint8)
-        raw = jnp.asarray(raw)
+        new = frames[bi * b:(bi + 1) * b]
+        raw = jnp.asarray(np.concatenate([tail, new]))
+        tail = new[-t:]
         flags = jnp.asarray([bi == 0] + [False] * (b - 1))
-        out, stats, prev, bl, hm = step(raw, prev, bl, flags, hm, valid,
-                                        seed)
-        eo, es, ep, eb, eh = pallas_fused.absdiff_step_ring(
-            props, h, w, raw, ep, eb, flags, eh, valid, seed)
+        out, stats, bl, hm = step(raw, bl, flags, hm, valid)
+        eo, es, eb, eh = reference.absdiff_step(
+            props, h, w, raw, eb, flags, eh, valid)
         np.testing.assert_array_equal(np.asarray(out), np.asarray(eo))
         np.testing.assert_allclose(np.asarray(stats), np.asarray(es),
                                    atol=1e-6)
-        np.testing.assert_array_equal(np.asarray(prev), np.asarray(ep))
         np.testing.assert_array_equal(np.asarray(bl), np.asarray(eb))
         np.testing.assert_allclose(np.asarray(hm), np.asarray(eh),
                                    atol=1e-5)
-        seed = jnp.int32(0)
 
 
 def test_raw_rowsharded_alignment_guard():
-    with pytest.raises(ValueError, match="8-row-aligned"):
+    """A rows axis that does not divide the padded height fails eagerly
+    with a clear message, not deep inside shard_map."""
+    with pytest.raises(ValueError, match="divide the padded height"):
         make_rowsharded_step(
             DiPsProperties(output=OutputMode.ABSDIFF, temporal_size=2),
-            24, 40, _mesh(), backend="pallas")
-
-
-def test_raw_rowsharded_slab_impl_validated_eagerly():
-    """Advisor r4: raw modes ignore slab_impl (no stencil) but a typo'd
-    value must still fail loudly, matching grid2d's eager validation."""
-    with pytest.raises(ValueError, match="slab_impl"):
-        make_rowsharded_step(
-            DiPsProperties(output=OutputMode.ABSDIFF, temporal_size=2),
-            64, 40, _mesh(), slab_impl="nope")
+            24, 40, Mesh(np.asarray(jax.devices()[:5]), ("rows",)))

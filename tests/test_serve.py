@@ -5,9 +5,9 @@ import threading
 import numpy as np
 import pytest
 
-from dips_tpu.properties import DiPsFilter, DiPsProperties
-from dips_tpu.serve import DiPsClient, DiPsServer
-from dips_tpu.models import DiPsEngine
+from dips.properties import DiPsFilter, DiPsProperties
+from dips.serve import DiPsClient, DiPsServer
+from dips.models import DiPsEngine
 from tests.conftest import make_clip
 
 
@@ -985,7 +985,7 @@ def test_duplicate_token_park_releases_superseded_slot():
 
 def test_prometheus_single_type_line_per_family():
     """Duplicate # TYPE lines make Prometheus reject the whole scrape."""
-    from dips_tpu.serve import _prometheus_text
+    from dips.serve import _prometheus_text
 
     text = _prometheus_text({
         "connections": 1, "flexible": True,
@@ -1058,7 +1058,7 @@ def test_resilient_client_reconnects_and_resends():
     """A connection killed BEFORE the request reaches the server: the
     client reconnects, resumes the parked session, and resends — the
     stream is bit-identical to an uninterrupted run."""
-    from dips_tpu.serve import ResilientDiPsClient
+    from dips.serve import ResilientDiPsClient
 
     props = DiPsProperties(window_size=1, temporal_size=1,
                            filter=DiPsFilter.UNFILTERED)
@@ -1089,8 +1089,8 @@ def test_resilient_client_reply_lost_accounting():
     records the drop, and the stream continues correctly aligned."""
     import time
 
-    from dips_tpu.errors import ReplyLost
-    from dips_tpu.serve import ResilientDiPsClient, _send
+    from dips.errors import ReplyLost
+    from dips.serve import ResilientDiPsClient, _send
 
     props = DiPsProperties(window_size=1, temporal_size=1,
                            filter=DiPsFilter.UNFILTERED)
@@ -1133,7 +1133,7 @@ def test_resilient_client_survives_server_restart():
     a warning instead of erroring forever."""
     import time
 
-    from dips_tpu.serve import ResilientDiPsClient
+    from dips.serve import ResilientDiPsClient
 
     props = DiPsProperties(window_size=1, temporal_size=1,
                            filter=DiPsFilter.UNFILTERED)
@@ -1165,7 +1165,7 @@ def test_resilient_client_survives_server_restart():
 
 
 def test_resilient_client_requires_session():
-    from dips_tpu.serve import ResilientDiPsClient
+    from dips.serve import ResilientDiPsClient
 
     with pytest.raises(ValueError, match="session"):
         ResilientDiPsClient(1234)
@@ -1178,7 +1178,7 @@ def test_resilient_client_initial_connect_backoff():
     import socket as sk
     import time
 
-    from dips_tpu.serve import ResilientDiPsClient
+    from dips.serve import ResilientDiPsClient
 
     # reserve a port the daemon will come up on shortly
     probe = sk.socket()
@@ -1245,7 +1245,7 @@ def test_flexible_prebind_hello_waits_for_token_takeover():
 # ---------------------------------------------------------------------------
 
 def test_loadgen_measures_daemon():
-    from dips_tpu.loadgen import parse_geometry, run_load
+    from dips.loadgen import parse_geometry, run_load
 
     assert parse_geometry("480p") == (480, 854)
     assert parse_geometry("32X48") == (32, 48)
@@ -1272,7 +1272,7 @@ def test_loadgen_rejects_unmeasurable_config():
     """frames < batch means zero measured requests per client: a clean
     error summary, not an IndexError on the empty percentile array (and
     no sockets are even opened)."""
-    from dips_tpu.loadgen import run_load
+    from dips.loadgen import run_load
 
     s = run_load(1, clients=2, frames=1, batch=4)
     assert not s["ok"] and "zero measured" in s["errors"][0]
@@ -1281,7 +1281,7 @@ def test_loadgen_rejects_unmeasurable_config():
 
 
 def test_loadgen_cli_json_line(capsys):
-    from dips_tpu.loadgen import main as lg_main
+    from dips.loadgen import main as lg_main
 
     props = DiPsProperties(window_size=1, temporal_size=1,
                            filter=DiPsFilter.UNFILTERED)
@@ -1336,8 +1336,8 @@ def test_resilient_fleet_random_rst_stress():
     import socket as sk
     import struct
 
-    from dips_tpu.errors import ReplyLost
-    from dips_tpu.serve import ResilientDiPsClient
+    from dips.errors import ReplyLost
+    from dips.serve import ResilientDiPsClient
 
     props = DiPsProperties(window_size=1, temporal_size=1,
                            filter=DiPsFilter.UNFILTERED)
@@ -1391,7 +1391,7 @@ def test_resilient_fleet_random_rst_stress():
 # ---------------------------------------------------------------------------
 
 def _absdiff_props():
-    from dips_tpu.properties import OutputMode
+    from dips.properties import OutputMode
     return DiPsProperties(window_size=1, temporal_size=2,
                           filter=DiPsFilter.UNFILTERED,
                           output=OutputMode.ABSDIFF)
@@ -1657,7 +1657,7 @@ def _event_clip(h=16, w=24):
 
 
 def _event_server(**kw):
-    from dips_tpu.properties import OutputMode
+    from dips.properties import OutputMode
     props = DiPsProperties(window_size=1, temporal_size=1,
                            filter=DiPsFilter.UNFILTERED,
                            output=OutputMode.ABSDIFF)
@@ -1749,7 +1749,7 @@ def test_serve_events_off_by_default():
 def test_serve_events_coalesced_per_slot():
     """Coalesced daemon: each slot segments ITS OWN stream — one moving
     camera must not open events on an idle sibling."""
-    from dips_tpu.properties import OutputMode
+    from dips.properties import OutputMode
     props = DiPsProperties(window_size=1, temporal_size=1,
                            filter=DiPsFilter.UNFILTERED,
                            output=OutputMode.ABSDIFF)
@@ -1778,8 +1778,8 @@ def test_serve_events_coalesced_per_slot():
 def test_serve_events_resilient_client_passthrough():
     """ResilientDiPsClient surfaces event annotations and an open event
     survives its reconnect (the parked session carries the detector)."""
-    from dips_tpu.serve import ResilientDiPsClient
-    from dips_tpu.errors import ReplyLost
+    from dips.serve import ResilientDiPsClient
+    from dips.errors import ReplyLost
     srv = _event_server()
     clip = _event_clip()
     try:
@@ -1813,9 +1813,9 @@ def test_combined_feature_stress_events_autosave_restart(tmp_path):
     import socket as sk
     import struct
 
-    from dips_tpu.errors import ReplyLost
-    from dips_tpu.properties import OutputMode
-    from dips_tpu.serve import ResilientDiPsClient
+    from dips.errors import ReplyLost
+    from dips.properties import OutputMode
+    from dips.serve import ResilientDiPsClient
 
     props = DiPsProperties(window_size=1, temporal_size=1,
                            filter=DiPsFilter.UNFILTERED,
@@ -1918,7 +1918,7 @@ def test_per_session_roi():
     the roi area, the quiet-region session reports ~no change, hello
     echoes the roi, and a parked named session refuses a different roi
     until reset."""
-    from dips_tpu.ops.oracle import DiPsOracle
+    from dips.ops.oracle import DiPsOracle
     props = DiPsProperties(window_size=1, temporal_size=1,
                            filter=DiPsFilter.UNFILTERED)
     srv = DiPsServer(props, 24, 40, port=0, batch=1, max_sessions=4)
@@ -2096,7 +2096,7 @@ def test_flicker_on_coalesced_session():
 def test_serve_main_oversized_roi_is_friendly(capsys):
     """serve.main with an --roi larger than the fixed geometry: rc 2 +
     message, not a traceback out of DiPsServer.__init__."""
-    from dips_tpu.serve import main as serve_main
+    from dips.serve import main as serve_main
     rc = serve_main(["--height", "24", "--width", "40", "--port", "0",
                      "--roi", "0,0,99,99"])
     assert rc == 2 and "roi" in capsys.readouterr().err
@@ -2104,7 +2104,7 @@ def test_serve_main_oversized_roi_is_friendly(capsys):
 
 def test_resilient_client_flicker_passthrough():
     """The fleet edge client rebinds the flicker window on reconnect."""
-    from dips_tpu.serve import ResilientDiPsClient
+    from dips.serve import ResilientDiPsClient
     props = DiPsProperties(window_size=1, temporal_size=1,
                            filter=DiPsFilter.UNFILTERED)
     srv = DiPsServer(props, 16, 24, port=0, batch=1, max_sessions=2)
@@ -2193,7 +2193,7 @@ def test_serve_downscale_flexible_pool_and_checkpoint(tmp_path):
 
 def test_coalesced_mesh_row_sharded_sessions():
     """--coalesce-mesh SxR: coalesced slots on a 2-D (stream x rows)
-    grid — the big-frame serving shape (VERDICT r4 item 5).  Two clients
+    grid — the big-frame serving shape.  Two clients
     on a (2 x 4) grid must each get exactly what a dedicated
     single-stream engine computes (row sharding is pure layout)."""
     srv, props = _coalesced_server(2, h=32, w=40, coalesce_mesh=(2, 4))
@@ -2231,7 +2231,7 @@ def test_coalesced_mesh_row_sharded_sessions():
 def test_daemon_coalesce_mesh_flag_validation(capsys):
     """--coalesce-mesh parse errors and the --coalesce-devices conflict
     fail at startup, not at first request."""
-    from dips_tpu.serve.daemon import main as serve_main
+    from dips.serve.daemon import main as serve_main
     rc = serve_main(["--coalesce", "2", "--coalesce-mesh", "oops",
                      "--height", "32", "--width", "40"])
     assert rc == 2

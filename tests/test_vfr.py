@@ -6,7 +6,7 @@ frame_extractor.rs:242-262; cv2's CFR writer needs explicit retiming)."""
 import numpy as np
 import pytest
 
-from dips_tpu.io.video import CfrRetimer, retime_cfr
+from dips.io.video import CfrRetimer, retime_cfr
 
 
 def _tags(n):
@@ -68,9 +68,9 @@ def test_cfr_clip_with_retime_is_identity(tmp_path):
     """Regression: cv2's POS_MSEC updates to the decoded frame's own pts
     AFTER each read — probing before read lagged by one frame and made the
     retimer drop frame 1 of every CFR clip."""
-    from dips_tpu.io import moving_square_clip, write_clip
-    from dips_tpu.io.video import VideoReader
-    from dips_tpu.cli import main as cli_main
+    from dips.io import moving_square_clip, write_clip
+    from dips.io.video import VideoReader
+    from dips.cli import main as cli_main
 
     p = str(tmp_path / "in.avi")
     write_clip(moving_square_clip(n=12, height=32, width=48), p, fps=15)
@@ -91,10 +91,10 @@ def test_perform_dips_vfr_roundtrip(tmp_path):
     perform_dips with retime_vfr onto the CFR cv2 writer — the output video
     duration matches the source duration within one frame."""
     from tests.test_gstreamer import FakeGst
-    from dips_tpu.io import gstreamer
-    from dips_tpu.app import DiPsJob, perform_dips
-    from dips_tpu.io.video import VideoReader
-    from dips_tpu.properties import DiPsFilter, DiPsProperties
+    from dips.io import gstreamer
+    from dips.app import DiPsJob, perform_dips
+    from dips.io.video import VideoReader
+    from dips.properties import DiPsFilter, DiPsProperties
 
     h, w = 16, 24
     rng = np.random.default_rng(1)
@@ -115,7 +115,7 @@ def test_perform_dips_vfr_roundtrip(tmp_path):
             video_backend="gstreamer", retime_vfr=True)
         # writer must be the CFR cv2 one for this test: gstreamer backend
         # would pass PTS through instead — force the opencv writer
-        from dips_tpu.io.video import VideoWriter
+        from dips.io.video import VideoWriter
 
         orig = gstreamer.open_writer
 

@@ -14,9 +14,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import pytest
 
-from dips_tpu.properties import DiPsFilter, DiPsProperties, OutputMode
-from dips_tpu.serve import DiPsClient, DiPsServer
-from dips_tpu.utils.webhook import WebhookSender
+from dips.properties import DiPsFilter, DiPsProperties, OutputMode
+from dips.serve import DiPsClient, DiPsServer
+from dips.utils.webhook import WebhookSender
 from tests.conftest import make_clip
 
 
@@ -307,7 +307,7 @@ def test_serve_webhook_requires_events():
 
 
 def test_serve_webhook_cli_requires_events_flag(capsys):
-    from dips_tpu.serve import main
+    from dips.serve import main
     rc = main(["--port", "0", "--height", "16", "--width", "24",
                "--event-webhook", "http://127.0.0.1:9/x"])
     assert rc == 2
@@ -315,7 +315,7 @@ def test_serve_webhook_cli_requires_events_flag(capsys):
 
 
 def test_serve_webhook_counters_in_prometheus_text():
-    from dips_tpu.serve import _prometheus_text
+    from dips.serve import _prometheus_text
     srv = _event_server()
     try:
         text = _prometheus_text(srv.metrics())

@@ -6,10 +6,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dips_tpu.models import DiPsEngine
-from dips_tpu.ops import wire
-from dips_tpu.properties import DiPsProperties, OutputMode
-from dips_tpu.serve import DiPsClient, DiPsServer
+from dips.models import DiPsEngine
+from dips.ops import wire
+from dips.properties import DiPsProperties, OutputMode
+from dips.serve import DiPsClient, DiPsServer
 from tests.conftest import make_clip
 
 
@@ -102,8 +102,8 @@ def test_serve_packed_h_not_multiple_of_8(packed_wire):
 
 
 def test_stream_dips_packed_wire(tmp_path):
-    from dips_tpu.app import DiPsJob, stream_dips
-    from dips_tpu.io import moving_square_clip, write_clip
+    from dips.app import DiPsJob, stream_dips
+    from dips.io import moving_square_clip, write_clip
     path = str(tmp_path / "in.avi")
     write_clip(moving_square_clip(n=10, height=48, width=64, seed=7), path,
                fps=20)
@@ -120,7 +120,7 @@ def test_stream_dips_packed_wire(tmp_path):
 
 
 def test_multistream_packed_wire():
-    from dips_tpu.parallel import MultiStreamEngine, stream_mesh
+    from dips.parallel import MultiStreamEngine, stream_mesh
     props = DiPsProperties(output=OutputMode.THRESHOLD, temporal_size=2)
     mesh = stream_mesh(4)
     feeds = [[f for f in make_clip(n=4, h=16, w=24, seed=10 + s)]
@@ -142,7 +142,7 @@ def test_multistream_packed_wire():
 def test_process_reply_forwards_device_packed():
     """A packed_wire engine + packed request must forward the device-packed
     padded planes verbatim (no host unpack/repack on the serving path)."""
-    from dips_tpu.serve import _process_reply
+    from dips.serve import _process_reply
     props = DiPsProperties(output=OutputMode.THRESHOLD, temporal_size=2)
     eng = DiPsEngine(props, 24, 40, batch=2, packed_wire=True)
     frame = make_clip(n=1, h=24, w=40, seed=9)[0]
